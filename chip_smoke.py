@@ -1,0 +1,298 @@
+#!/usr/bin/env python3
+"""Drive grok_tpu_torch's Part-1 lossless encode on one CUDA card.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, one JSON line each (any failure exits non-zero before the last
+line):
+  1. device   card name and power limit (nvidia-smi)
+  2. build    nvcc of every kernel source, in parallel, with build seconds
+  3. kernels  every kernel of the path and the TPU kernel it replaces
+  4. check    each kernel against its plain torch version on inputs from
+              the 3840x2160x3 image: K-a and K-b on the whole image, K-c and
+              K-d on a seeded sample of codeblocks from every band type
+              (plain versions on the CPU); all integer, compared exactly
+  5. slice    256x256x3 compress on the card, byte-identical to the plain
+              path (device="cpu"), codestream framing checked
+  6. e2e      3840x2160x3 lossless53 (CompressParams(num_resolutions=6))
+              compressed three times like three requests: per-stage ms,
+              end-to-end ms, MP/s, bytes; every kernel must have launched
+Then the kernel summary line, the nvidia-smi line and the result line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+INT32_OPS_PER_S = 33.5e12  # H100 SXM peak INT32 rate, NVIDIA H100 white paper
+W, H, NC = 3840, 2160, 3
+
+
+def natural_image(h, w, nc=3):
+    """bench.py's synthetic content (numpy, seed 3)."""
+    r = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 0.5 + 0.3 * np.sin(xx / 23) * np.cos(yy / 31)
+    tex = r.standard_normal((h, w)) * 0.02
+    edges = ((xx // 40 + yy // 40) % 2) * 0.2
+    g = (np.clip(base + tex + edges, 0, 1) * 255).astype(np.int32)
+    if nc == 1:
+        return g
+    return np.stack(
+        [g] + [np.clip(g + r.integers(-20, 20, (h, w)), 0, 255) for _ in range(nc - 1)],
+        axis=-1,
+    ).astype(np.int32)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(torch, fn, reps=5):
+    """Mean device milliseconds of fn over reps launches, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def cpu_ms(fn):
+    t = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t) * 1e3, out
+
+
+def _device(torch):
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 0)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import grok_tpu_torch as gt
+    from grok_tpu_torch import kernels
+    from grok_tpu_torch.codestream.compress import build_siz, build_tcp
+    from grok_tpu_torch.codestream.quantizer import apply_band_quant
+    from grok_tpu_torch.ops import transform as tr
+    from grok_tpu_torch.t1 import ebcot_cuda as ec
+    from grok_tpu_torch.t1.ebcot import lane_numbps
+    from grok_tpu_torch.tile.tile_processor import TileProcessor
+
+    dev = _device(torch)
+
+    # ---- 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # ---- 2. build
+    build_s = kernels.build_all()
+    regs = {}
+    for k in kernels.KERNELS.values():
+        log = kernels.BUILD_DIR / (k.source.rsplit(".", 1)[0] + ".log")
+        if log.exists():
+            regs[k.source] = [ln.strip() for ln in log.read_text().splitlines()
+                              if "registers" in ln]
+    emit({"phase": "build", "seconds": round(build_s, 3), "ptxas": regs})
+
+    # ---- 3. kernels
+    emit({"phase": "kernels", "path_kernels": [
+        {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",
+         "replaces": k.replaces} for k in kernels.KERNELS.values()]})
+
+    # ---- 4. each kernel against its plain version
+    arr = natural_image(H, W, NC)
+    image = gt.Image.from_array(arr)
+    params = gt.CompressParams(num_resolutions=6)
+    siz, tcp = build_siz(image, params), build_tcp(image, params)
+    tp = TileProcessor(siz, tcp, 0, dev)
+    for c in range(NC):
+        apply_band_quant(tp.geoms[c], tcp.tccps[c])
+    planes = [torch.from_numpy(np.ascontiguousarray(arr[:, :, c])).to(dev) for c in range(NC)]
+    dcs = [128] * NC
+    stats = {}
+
+    # K-a on the whole image
+    got = tr.dc_rct_fwd(planes, dcs, True)
+    ref = tr.dc_rct_fwd_plain(planes, dcs, True)
+    err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
+    stats["dc_rct_fwd"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: tr.dc_rct_fwd(planes, dcs, True)),
+        plain_ms=cuda_ms(torch, lambda: tr.dc_rct_fwd_plain(planes, dcs, True)),
+        bytes=6 * 4 * W * H, ops=8 * W * H, library_ms=None, shape=f"3 x {H}x{W} int32")
+
+    # K-b on the whole image: all levels of all components
+    levels = []
+    for g in tp.geoms:
+        cur = g.rect
+        for _ in range(5):
+            levels.append((cur.height, cur.width, cur.y0 & 1, cur.x0 & 1))
+            cur = cur.ceil_div_pow2(1)
+
+    def dwt_all(fn, ps):
+        for c, p in enumerate(ps):
+            for (h, w, py, px) in levels[5 * c:5 * c + 5]:
+                fn(p, h, w, py, px)
+    kern = [p.clone() for p in got]
+    plain = [p.clone() for p in got]
+    dwt_all(tr.dwt53_fwd_level, kern)
+    dwt_all(tr.dwt53_fwd_level_plain, plain)
+    err = max(int((a - b).abs().max()) for a, b in zip(kern, plain))
+    packed_ref = [p.clone() for p in plain]
+    stats["dwt53_fwd_level"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: dwt_all(tr.dwt53_fwd_level, kern)),
+        plain_ms=cuda_ms(torch, lambda: dwt_all(tr.dwt53_fwd_level_plain, plain)),
+        bytes=sum(8 * h * w for (h, w, _, _) in levels),
+        ops=sum(9 * h * w for (h, w, _, _) in levels), library_ms=None,
+        shape="5 levels x 3 comps from 2160x3840 (ms per image)")
+    coeffs = tr.forward_transform(planes, [g.rect for g in tp.geoms], [5] * NC, dcs, True)
+    if any(not torch.equal(a, b) for a, b in zip(coeffs, packed_ref)):
+        raise AssertionError("forward_transform differs from the level-by-level check")
+
+    # K-c / K-d: full batch on the card, sample against the plain versions
+    plan = tp.gather_plan()
+    batch = tp.gather(coeffs, plan)
+    n, bh, bw = batch.shape
+    numbps = lane_numbps(batch.abs(), plan.heights, plan.widths)
+    pmax = int(numbps.max())
+    pmaxc = -(-pmax // 4) * 4
+    lanes = torch.stack([numbps, plan.heights, plan.widths, plan.orients,
+                         plan.styles]).to(torch.int32).contiguous()
+    tabs = ec.device_tables(dev)
+    sym = ec.ebcot_symbols(batch, lanes, tabs["ctx"], pmaxc)
+    ms_c = cuda_ms(torch, lambda: ec.ebcot_symbols(batch, lanes, tabs["ctx"], pmaxc), reps=3)
+    nb32 = lanes[0].contiguous()
+    st32 = lanes[4].contiguous()
+    packed = ec.mq_pack(sym, nb32, st32, tabs["mq"], bh, bw, pmax)
+    ms_d = cuda_ms(torch, lambda: ec.mq_pack(sym, nb32, st32, tabs["mq"], bh, bw, pmax), reps=3)
+
+    rng = np.random.default_rng(7)
+    orients = plan.orients.cpu().numpy()
+    pick = np.concatenate([rng.choice(np.flatnonzero(orients == o),
+                                      size=min(20, int((orients == o).sum())), replace=False)
+                           for o in range(4)])
+    idx = torch.from_numpy(np.sort(pick)).to(dev)
+    s_batch = batch[idx].contiguous()
+    s_lanes = lanes[:, idx].contiguous()
+    s_pmax = int(s_lanes[0].max())
+    s_pmaxc = -(-s_pmax // 4) * 4
+    s_sym = ec.ebcot_symbols(s_batch, s_lanes, tabs["ctx"], s_pmaxc)
+    sample_ms_c = cuda_ms(torch, lambda: ec.ebcot_symbols(s_batch, s_lanes, tabs["ctx"],
+                                                          s_pmaxc), reps=3)
+    plain_ms_c, p_sym = cpu_ms(lambda: ec.ebcot_symbols_plain(
+        s_batch.cpu(), s_lanes.cpu(), tabs["ctx"].cpu(), s_pmaxc))
+    err_c = int((s_sym.cpu().to(torch.int32) - p_sym.to(torch.int32)).abs().max())
+    k_out = ec.mq_pack(s_sym, s_lanes[0].contiguous(), s_lanes[4].contiguous(),
+                       tabs["mq"], bh, bw, s_pmax)
+    sample_ms_d = cuda_ms(torch, lambda: ec.mq_pack(s_sym, s_lanes[0].contiguous(),
+                                                    s_lanes[4].contiguous(), tabs["mq"],
+                                                    bh, bw, s_pmax), reps=3)
+    plain_ms_d, p_out = cpu_ms(lambda: ec.mq_pack_plain(
+        p_sym, s_lanes[0].cpu(), s_lanes[4].cpu(), tabs["mq"].cpu(), bh, bw, s_pmax))
+    err_d = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
+                for a, b in zip(k_out, p_out))
+    s_pad = sym.shape[2]
+    s_spp, s_mrp, s_cup, _ = ec.slot_counts(-(-bh // 4), bw)
+    nbh = numbps.cpu().numpy()
+    read_d = int(sum(max(int(b) - 1, 0) * (s_spp + s_mrp) + int(b) * s_cup for b in nbh))
+    written_d = int(packed[1].sum()) + n  # segment bytes and each lane's carry byte
+    records = pmaxc * 3 * s_pad * n
+    sample = (f"{len(pick)} codeblocks ("
+              + ", ".join(f"{(orients[pick] == o).sum()} orient {o}" for o in range(4))
+              + "), plain on cpu")
+    # operations: at least one integer operation per record written (K-c)
+    # or read (K-d); any form of the scan or the coder does more
+    stats["ebcot_symbols"] = dict(
+        max_abs_err=err_c, ms=ms_c, plain_ms=plain_ms_c, library_ms=None,
+        bytes=n * bh * bw * 4 + records, ops=records,
+        shape=f"{n} codeblocks {bh}x{bw}, pmaxc {pmaxc}, records {records} B",
+        plain_shape=sample, sample_ms=sample_ms_c)
+    stats["mq_pack"] = dict(
+        max_abs_err=err_d, ms=ms_d, plain_ms=plain_ms_d, library_ms=None,
+        bytes=read_d + written_d + n * 8 + packed[2].numel() * 8, ops=read_d,
+        shape=f"{n} codeblocks, records of coded planes {read_d} B, segments {written_d} B",
+        plain_shape=sample, sample_ms=sample_ms_d)
+    for name, s in stats.items():
+        bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = s["ops"] / INT32_OPS_PER_S * 1e3
+        s["bound_ms"] = max(bytes_ms, ops_ms)
+        s["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        emit({"phase": "check", "kernel": name, "tolerance": 0, **s})
+        if s["max_abs_err"] != 0:
+            raise AssertionError(f"{name} differs from its plain version")
+    del sym, packed, s_sym, batch
+
+    # ---- 5. whole slice at 256x256x3: kernel path == plain path
+    small = natural_image(256, 256, 3)
+    t0 = time.perf_counter()
+    s_gpu = gt.compress(gt.Image.from_array(small), gt.CompressParams(num_resolutions=6))
+    t1 = time.perf_counter()
+    s_cpu = gt.compress(gt.Image.from_array(small), gt.CompressParams(num_resolutions=6),
+                        device="cpu")
+    t2 = time.perf_counter()
+    ok = (s_gpu == s_cpu and s_gpu[:4] == b"\xff\x4f\xff\x51" and s_gpu[-2:] == b"\xff\xd9")
+    emit({"phase": "slice", "image": "256x256x3", "bytes": len(s_gpu), "identical": s_gpu == s_cpu,
+          "gpu_ms": (t1 - t0) * 1e3, "plain_cpu_ms": (t2 - t1) * 1e3})
+    if not ok:
+        raise AssertionError("256x256 kernel-path stream differs from the plain path")
+
+    # ---- 6. full size, three requests
+    gt.reset_launch_counts()
+    runs, streams = [], []
+    for i in range(3):
+        stage: dict[str, float] = {}
+        img = gt.Image.from_array(arr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gt.compress(img, gt.CompressParams(num_resolutions=6), stage_ms=stage)
+        torch.cuda.synchronize()
+        e2e = (time.perf_counter() - t0) * 1e3
+        streams.append(out)
+        runs.append({"request": i, "e2e_ms": e2e, "mp_per_s": W * H / 1e6 / (e2e / 1e3),
+                     "bytes": len(out), "stage_ms": stage})
+        emit({"phase": "e2e", **runs[-1]})
+    counts = gt.launch_counts()
+    emit({"phase": "e2e_launches", "image": f"{W}x{H}x{NC} lossless53", "requests": 3,
+          "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if len(set(streams)) != 1 or streams[0][:4] != b"\xff\x4f\xff\x51" or streams[0][-2:] != b"\xff\xd9":
+        raise AssertionError("full-size streams are not identical well-framed codestreams")
+
+    emit({"kernels": [
+        {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",
+         "replaces": k.replaces, "launches": counts[k.name],
+         "max_abs_err": stats[k.name]["max_abs_err"], "ms": stats[k.name]["ms"],
+         "plain_ms": stats[k.name]["plain_ms"], "bound_ms": stats[k.name]["bound_ms"],
+         "bound_by": stats[k.name]["bound_by"], "library_ms": stats[k.name]["library_ms"]}
+        for k in kernels.KERNELS.values()]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,174 @@
+"""Whole-image codestream encoder; counterpart of
+grok_tpu/codestream/compress.py (build_siz, build_tcp, write_main_header,
+encode_tile_to_blob, compress) for the Part-1 lossless slice.
+
+Host-side orchestration: the main header, one TileProcessor per tile
+(each drives the device work of its tile), tiles one after another.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.errors import ParameterError, UnsupportedFeatureError
+from ..core.image import Image
+from ..core.params import CompressParams, QuantStyle
+from ..core.rect import ceil_div
+from ..core.timing import StageClock
+from ..tile.tile_processor import TileProcessor
+from . import markers as mk
+from .quantizer import compute_signalled_quant
+from .structs import Siz, SizComponent, Tcp, TccpStyle
+
+
+def check_supported(params: CompressParams) -> None:
+    """Refuse every option outside the Part-1 lossless slice by name."""
+    off = {
+        "ht": params.ht,
+        "irreversible": params.irreversible,
+        "mct_matrix": params.mct_matrix is not None,
+        "custom_mct": params.custom_mct is not None,
+        "num_layers>1": params.num_layers != 1,
+        "layer_rates": bool(params.layer_rates),
+        "layer_psnrs": bool(params.layer_psnrs),
+        "roi": params.roi_comp >= 0 or params.roi_shift != 0,
+        "precinct_sizes": params.precinct_sizes is not None,
+        "progression_changes (POC)": bool(params.progression_changes),
+        "tp_divider": params.tp_divider is not None,
+        "use_sop": params.use_sop,
+        "use_eph": params.use_eph,
+        "write_tlm": params.write_tlm,
+        "write_plt": params.write_plt,
+        "write_plm": params.write_plm,
+        "write_ppt": params.write_ppt,
+        "write_ppm": params.write_ppm,
+        "profile": params.profile != 0,
+        "quant_style": params.quant_style not in (None, QuantStyle.NO_QUANT),
+        "cblk_style bits above 0x3F": (params.cblk_style & ~0x3F) != 0,
+    }
+    bad = [k for k, v in off.items() if v]
+    if bad:
+        raise UnsupportedFeatureError(
+            f"outside the ported Part-1 lossless slice: {', '.join(bad)}")
+
+
+def build_siz(image: Image, params: CompressParams) -> Siz:
+    siz = Siz()
+    siz.rsiz = params.profile
+    siz.x0, siz.y0 = image.x0, image.y0
+    siz.x1, siz.y1 = image.x1, image.y1
+    if params.tile_size is None:
+        # single tile anchored at the grid origin, spanning the canvas
+        siz.tile_x0, siz.tile_y0 = 0, 0
+        siz.tile_w = image.x1
+        siz.tile_h = image.y1
+    else:
+        siz.tile_x0, siz.tile_y0 = params.tile_offset
+        siz.tile_w, siz.tile_h = params.tile_size
+    for c in image.components:
+        siz.comps.append(SizComponent(dx=c.dx, dy=c.dy, prec=c.prec, signed=c.signed))
+    if siz.num_tiles > 65535:
+        raise ParameterError(
+            f"tile grid {siz.num_tiles_x}x{siz.num_tiles_y} exceeds the "
+            "65535-tile limit (T.800: SOT's Isot is 16-bit)")
+    return siz
+
+
+def build_tcp(image: Image, params: CompressParams) -> Tcp:
+    tcp = Tcp()
+    tcp.progression = params.progression
+    tcp.num_layers = params.num_layers
+    cs = image.components
+    equal = len(cs) >= 3 and all((c.dx, c.dy) == (cs[0].dx, cs[0].dy) for c in cs[:3])
+    tcp.mct = 1 if params.resolved_mct(image.num_comps, equal) else 0
+    for c in range(image.num_comps):
+        t = TccpStyle(
+            num_resolutions=params.num_resolutions,
+            cblk_w_exp=params.cblk_width.bit_length() - 1,
+            cblk_h_exp=params.cblk_height.bit_length() - 1,
+            cblk_style=params.cblk_style,
+            guard_bits=params.guard_bits,
+        )
+        prec = image.components[c].prec
+        if tcp.mct == 1 and c in (1, 2):
+            prec += 1  # RCT expands the chroma range by one bit
+        compute_signalled_quant(t, prec)
+        tcp.tccps.append(t)
+    return tcp
+
+
+def write_main_header(siz: Siz, tcp: Tcp, params: CompressParams) -> bytearray:
+    """Main header SOC, SIZ, COD, QCD, QCCs, COM."""
+    out = bytearray()
+    out += mk._u16(mk.SOC)
+    out += mk.write_siz(siz)
+    out += mk.write_cod(tcp)
+    out += mk.write_qcd(tcp)
+    base = tcp.tccps[0]
+    for c in range(1, siz.num_comps):
+        t = tcp.tccps[c]
+        if t.step_exps != base.step_exps:
+            out += mk.write_qcc(tcp, c, siz.num_comps)
+    if params.comment:
+        out += mk.write_com(params.comment.encode())
+    return out
+
+
+def _extract_tile(image: Image, siz: Siz, tile_index: int) -> list[np.ndarray]:
+    tb = siz.tile_bounds(tile_index)
+    arrays = []
+    for c in image.components:
+        x0 = ceil_div(tb.x0, c.dx) - c.x0
+        y0 = ceil_div(tb.y0, c.dy) - c.y0
+        x1 = ceil_div(tb.x1, c.dx) - c.x0
+        y1 = ceil_div(tb.y1, c.dy) - c.y0
+        arrays.append(c.data[y0:y1, x0:x1])
+    return arrays
+
+
+def encode_tile_to_blob(siz: Siz, tcp: Tcp, ti: int, comp_arrays: list[np.ndarray],
+                        device: torch.device, clock: StageClock | None = None) -> bytes:
+    """Encode one tile into its SOT..body blob (one tile-part)."""
+    tp = TileProcessor(siz, tcp, ti, device)
+    body = tp.compress(comp_arrays, clock)
+    psot = 12 + 2 + len(body)
+    return mk.write_sot(ti, psot, 0, 1) + mk._u16(mk.SOD) + body
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` or, when None, the current CUDA device; never a silent
+    CPU fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "grok_tpu_torch.compress runs on a CUDA device and none is "
+                "available; pass device='cpu' to run the plain versions")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def compress(image: Image, params: CompressParams | None = None, device=None,
+             stage_ms: dict[str, float] | None = None) -> bytes:
+    """Encode an Image to a raw .j2k codestream on ``device`` (default: the
+    current CUDA device). With ``stage_ms`` (a dict) the device is
+    synchronised between stages and their milliseconds are added there."""
+    params = params or CompressParams()
+    params.validate()
+    check_supported(params)
+    dev = resolve_device(device)
+    clock = StageClock(dev, stage_ms)
+    # the canvas origin is the Image's (x0, y0); params.image_offset is
+    # carried but not applied, as in grok_tpu
+    image.finalize()
+    siz = build_siz(image, params)
+    tcp = build_tcp(image, params)
+    for ti in range(siz.num_tiles):
+        if siz.tile_bounds(ti).empty():
+            raise ParameterError(f"tile {ti} empty")
+    out = write_main_header(siz, tcp, params)
+    clock.mark("markers")
+    for ti in range(siz.num_tiles):
+        out += encode_tile_to_blob(siz, tcp, ti, _extract_tile(image, siz, ti), dev, clock)
+    out += mk._u16(mk.EOC)
+    return bytes(out)

@@ -1,0 +1,89 @@
+"""Codestream state for encoding: SIZ geometry and coding styles
+(counterpart of grok_tpu/codestream/structs.py, encode side)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..core.params import ProgressionOrder
+from ..core.rect import Rect, ceil_div
+
+
+@dataclass
+class SizComponent:
+    dx: int = 1
+    dy: int = 1
+    prec: int = 8
+    signed: bool = False
+
+
+@dataclass
+class Siz:
+    """Canvas geometry of the SIZ marker (T.800 A.5.1)."""
+
+    rsiz: int = 0
+    x1: int = 0  # Xsiz
+    y1: int = 0  # Ysiz
+    x0: int = 0  # XOsiz
+    y0: int = 0  # YOsiz
+    tile_w: int = 0  # XTsiz
+    tile_h: int = 0  # YTsiz
+    tile_x0: int = 0  # XTOsiz
+    tile_y0: int = 0  # YTOsiz
+    comps: list[SizComponent] = field(default_factory=list)
+
+    @property
+    def num_comps(self) -> int:
+        return len(self.comps)
+
+    @property
+    def num_tiles_x(self) -> int:
+        return ceil_div(self.x1 - self.tile_x0, self.tile_w)
+
+    @property
+    def num_tiles_y(self) -> int:
+        return ceil_div(self.y1 - self.tile_y0, self.tile_h)
+
+    @property
+    def num_tiles(self) -> int:
+        return self.num_tiles_x * self.num_tiles_y
+
+    def tile_bounds(self, tile_index: int) -> Rect:
+        """Tile rect on the reference grid, clipped to the image area
+        (T.800 B.3 eq. B-7/B-8)."""
+        p = tile_index % self.num_tiles_x
+        q = tile_index // self.num_tiles_x
+        return Rect(
+            max(self.tile_x0 + p * self.tile_w, self.x0),
+            max(self.tile_y0 + q * self.tile_h, self.y0),
+            min(self.tile_x0 + (p + 1) * self.tile_w, self.x1),
+            min(self.tile_y0 + (q + 1) * self.tile_h, self.y1),
+        )
+
+
+@dataclass
+class TccpStyle:
+    """Per-component coding style (COD SPcod) and reversible quantization
+    exponents (QCD)."""
+
+    num_resolutions: int = 6
+    cblk_w_exp: int = 6  # log2 codeblock width
+    cblk_h_exp: int = 6
+    cblk_style: int = 0
+    guard_bits: int = 2
+    step_exps: list[int] = field(default_factory=list)  # per band (reversible)
+
+    def precinct_exp(self, res: int) -> tuple[int, int]:
+        """Maximal precincts: this slice signals no precinct sizes."""
+        return (15, 15)
+
+
+@dataclass
+class Tcp:
+    """Per-tile coding parameters (COD Scod/SGcod + per-component styles)."""
+
+    csty: int = 0
+    progression: ProgressionOrder = ProgressionOrder.LRCP
+    num_layers: int = 1
+    mct: int = 0  # 0: none, 1: RCT
+    tccps: list[TccpStyle] = field(default_factory=list)

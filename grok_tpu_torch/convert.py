@@ -1,0 +1,77 @@
+"""Carry-over of the codec's "weights": its coding tables and configuration.
+
+A codec has no trained weights; what must agree between grok_tpu and the
+port is its tables (EBCOT zero/sign-coding contexts, the MQ state
+machine, the 5/3 band synthesis norms) and its parameters. These helpers
+take the reference's values as plain numpy arrays and dicts, so the port
+never imports the reference to use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .codestream.quantizer import band_norm
+from .core.errors import ParameterError
+from .core.params import CompressParams, ProgressionChange, ProgressionOrder, QuantStyle
+from .t1.ebcot import SC_CTX, SC_XOR, ZC_LUT, ctx_table
+from .t1.mq import NLPS, NMPS, QE, SWITCH, mq_table
+
+NORM_LEVELS = 33
+
+
+def tables_from_numpy(d: dict, device=None) -> dict[str, torch.Tensor]:
+    """The port's table tensors on ``device`` from numpy arrays named as in
+    grok_tpu: _ZC_LUT [4, 45], _SC_CTX [9], _SC_XOR [9] (t1/ebcot_np.py),
+    QE, NMPS, NLPS, SWITCH [47] (t1/mq_np.py) and band_norms [4, 33], the
+    reversible synthesis norm of each (orient, level 1..33)."""
+    t = {k: torch.from_numpy(np.ascontiguousarray(d[k]).astype(np.int64))
+         for k in ("_ZC_LUT", "_SC_CTX", "_SC_XOR", "QE", "NMPS", "NLPS", "SWITCH")}
+    if t["_ZC_LUT"].shape != (4, 45) or any(t[k].shape != (47,)
+                                            for k in ("QE", "NMPS", "NLPS", "SWITCH")):
+        raise ValueError("table shapes differ from the reference's")
+    norms = np.asarray(d["band_norms"], dtype=np.float64)
+    if norms.shape != (4, NORM_LEVELS):
+        raise ValueError(f"band_norms must be [4, {NORM_LEVELS}]")
+    return {
+        "ctx": ctx_table(t["_ZC_LUT"], t["_SC_CTX"], t["_SC_XOR"]).to(device),
+        "mq": mq_table(t["QE"], t["NMPS"], t["NLPS"], t["SWITCH"]).to(device),
+        "band_norms": torch.from_numpy(norms).to(device),
+    }
+
+
+def builtin_tables(device=None) -> dict[str, torch.Tensor]:
+    """The port's own copies, in the layout of ``tables_from_numpy``."""
+    return tables_from_numpy({
+        "_ZC_LUT": ZC_LUT.numpy(), "_SC_CTX": SC_CTX.numpy(), "_SC_XOR": SC_XOR.numpy(),
+        "QE": QE.numpy(), "NMPS": NMPS.numpy(), "NLPS": NLPS.numpy(),
+        "SWITCH": SWITCH.numpy(),
+        "band_norms": np.array([[band_norm(o, lv) for lv in range(1, NORM_LEVELS + 1)]
+                                for o in range(4)], dtype=np.float64),
+    }, device)
+
+
+def params_from_dict(d: dict) -> CompressParams:
+    """CompressParams from a plain dict of its fields (e.g.
+    ``dataclasses.asdict`` of grok_tpu's CompressParams)."""
+    names = {f.name for f in dataclasses.fields(CompressParams)}
+    unknown = set(d) - names
+    if unknown:
+        raise ParameterError(f"unknown CompressParams fields: {sorted(unknown)}")
+    kw = dict(d)
+    if "progression" in kw:
+        kw["progression"] = ProgressionOrder(int(kw["progression"]))
+    if kw.get("quant_style") is not None:
+        kw["quant_style"] = QuantStyle(int(kw["quant_style"]))
+    if kw.get("progression_changes"):
+        kw["progression_changes"] = [
+            pc if isinstance(pc, ProgressionChange)
+            else ProgressionChange(**{**pc, "order": ProgressionOrder(int(pc["order"]))})
+            for pc in kw["progression_changes"]]
+    for k in ("tile_size", "tile_offset", "image_offset"):
+        if kw.get(k) is not None:
+            kw[k] = tuple(kw[k])
+    return CompressParams(**kw)

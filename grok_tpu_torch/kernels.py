@@ -1,0 +1,152 @@
+"""Hand-written CUDA kernels of the port: build, load and launch counts.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a)
+into its own shared library with a plain C interface, loaded with ctypes.
+The build happens at first use, in ``grok_tpu_torch/build/``, one nvcc
+process per source, all started together; a library is named after the
+hash of its source, so an edited source is rebuilt and an unchanged one is
+reused. A failed build raises: nothing falls back to a plain version.
+
+Every kernel's wrapper adds one to its ``Kernel.launches`` where it calls
+the library, and nowhere else (``launch_counts``/``reset_launch_counts``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int
+_I64 = ctypes.c_int64
+
+
+@dataclass
+class Kernel:
+    """One kernel: its C entry, where its source lives, what it replaces."""
+
+    name: str
+    source: str  # file name under csrc/
+    replaces: str  # the TPU kernel or XLA program it stands for
+    argtypes: tuple
+    launches: int = 0
+
+    def call(self, *args) -> None:
+        """Launch through the C entry; raise on a CUDA error code."""
+        fn = getattr(_library(self.source), self.name)
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
+        self.launches += 1
+
+
+KERNELS: dict[str, Kernel] = {
+    k.name: k
+    for k in (
+        Kernel("dc_rct_fwd", "dc_rct.cu",
+               "grok_tpu/ops/jax_pipeline.py:69 (K2-fwd: DC shift + RCT)",
+               (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P)),
+        Kernel("dwt53_fwd_level", "dwt53.cu",
+               "grok_tpu/ops/jax_pipeline.py:93 (K2-fwd: dwt.forward / fwd53_axis)",
+               (_P, _P, _I32, _I32, _I32, _I32, _I32, _P)),
+        Kernel("ebcot_symbols", "ebcot_symbols.cu",
+               "grok_tpu/t1/ebcot_pallas.py:70 (K1: _build_kernel_wide)",
+               (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _P)),
+        Kernel("mq_pack", "mq_pack.cu",
+               "grok_tpu/t1/ebcot_pallas.py:399 (host packer of K1)",
+               (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I64, _I32, _I32,
+                _I64, _I32, _P)),
+    )
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS.values()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _lib_path(source: str) -> Path:
+    digest = hashlib.sha256((CSRC / source).read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build_all() -> float:
+    """Compile every stale source in parallel; returns the wall seconds.
+    Compiler output (register and shared-memory use) goes to
+    build/<source>.log."""
+    t0 = time.perf_counter()
+    sources = sorted({k.source for k in KERNELS.values()})
+    todo = [s for s in sources if not _lib_path(s).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for s in todo:
+        out = _lib_path(s)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(BUILD_DIR / f"{Path(s).stem}.log", "w")
+        p = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)],
+                             stdout=log, stderr=subprocess.STDOUT)
+        procs.append((s, p, tmp, out, log))
+    failed = []
+    for s, p, tmp, out, log in procs:
+        rc = p.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(s)
+    if failed:
+        logs = "\n".join((BUILD_DIR / f"{Path(s).stem}.log").read_text()[-4000:]
+                         for s in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return time.perf_counter() - t0
+
+
+def _library(source: str) -> ctypes.CDLL:
+    lib = _LIBS.get(source)
+    if lib is None:
+        path = _lib_path(source)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for k in KERNELS.values():
+            if k.source == source:
+                fn = getattr(lib, k.name)
+                fn.argtypes = list(k.argtypes)
+                fn.restype = ctypes.c_int
+        _LIBS[source] = lib
+    return lib
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

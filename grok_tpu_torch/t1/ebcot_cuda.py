@@ -1,0 +1,460 @@
+"""Part-1 EBCOT encoder on the GPU: symbol-scan kernel + MQ packer kernel.
+
+Counterpart of grok_tpu/t1/ebcot_pallas.py. The context-modelling scan
+(K-c ``ebcot_symbols``, csrc/ebcot_symbols.cu, the port of the Pallas
+kernel ``_build_kernel_wide``) emits one byte record per coding decision
+at a fixed slot; the packer (K-d ``mq_pack``, csrc/mq_pack.cu, the port of
+the host packers ``_pack_symbols``/``_pack_symbols_nat``) drives the MQ and
+raw coders over those records. The encoder's symbol sequence never depends
+on the coder state, so records + contexts reproduce the stream exactly.
+
+Each kernel has its plain torch version in this module
+(``ebcot_symbols_plain``, ``mq_pack_plain``). A wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises. Per-pass distortions are plain tensor ops on whatever
+device holds the records (``pass_dist_from_records``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..core.timing import StageClock
+from .ebcot import (
+    T1EncodeResult,
+    ctx_table,
+    dd_ref,
+    dd_sig,
+    lane_numbps,
+    local_pass_index,
+    pass_is_raw,
+    term_after,
+)
+from .mq import CTX_MR0, CTX_RL, CTX_UNI, MQEncoder, mq_table
+
+# symbol record bit layout (kernel, plain scan and packers)
+_VALID = 0x80
+_RAW = 0x40
+_CTXM = 0x1F
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def slot_counts(ns: int, w: int) -> tuple[int, int, int, int]:
+    """Slots per pass for ns stripes of width w: (SPP, MRP, CUP, padded)."""
+    s_spp = ns * w * 8  # (s, x, k) x (zc, sign)
+    s_mrp = ns * w * 4  # (s, x, k)
+    s_cup = ns * w * 11 + 4  # (s, x) x (rl, uni1, uni0, 4x(zc, sign)) + segsym
+    s_pad = _round_up(max(s_spp, s_cup), 8)
+    return s_spp, s_mrp, s_cup, s_pad
+
+
+def max_bytes_for(pmax: int, h: int, w: int) -> int:
+    """Per-lane segment capacity (the reference coders' bound)."""
+    return max(64, (pmax * h * w) // 4 + 128)
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
+    if t.dtype != dtype or t.dim() != ndim or t.device != device:
+        raise ValueError(f"{name}: want {dtype} {ndim}-d on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+# ===================================================== K-c: symbol scan
+def ebcot_symbols(coeffs: torch.Tensor, lanes: torch.Tensor, tab: torch.Tensor,
+                  pmaxc: int) -> torch.Tensor:
+    """Symbol records [pmaxc, 3, s_pad, n] uint8 of a codeblock batch.
+
+    coeffs: [n, h, w] int32; lanes: [5, n] int32 rows numbps, height,
+    width, orient, style; tab: [198] int32 (t1.ebcot.ctx_table)."""
+    n, h, w = coeffs.shape
+    dev = coeffs.device
+    _check(coeffs, "coeffs", torch.int32, 3, dev)
+    _check(lanes, "lanes", torch.int32, 2, dev)
+    _check(tab, "tab", torch.int32, 1, dev)
+    if lanes.shape != (5, n) or tab.shape != (198,) or pmaxc % 4:
+        raise ValueError("lanes must be [5, n], tab [198], pmaxc a multiple of 4")
+    if dev.type == "cpu":
+        return ebcot_symbols_plain(coeffs, lanes, tab, pmaxc)
+    if dev.type != "cuda":
+        raise ValueError(f"ebcot_symbols: unsupported device {dev}")
+    hp = _round_up(h, 4)
+    s_pad = slot_counts(hp // 4, w)[3]
+    coef_lm = coeffs.permute(1, 2, 0).contiguous()  # [h, w, n] lane-minor
+    flags = torch.empty(((hp + 2) * (w + 2), n), dtype=torch.uint8, device=dev)
+    out = torch.empty((pmaxc, 3, s_pad, n), dtype=torch.uint8, device=dev)
+    kernels.KERNELS["ebcot_symbols"].call(
+        coef_lm.data_ptr(), lanes.data_ptr(), tab.data_ptr(), flags.data_ptr(),
+        out.data_ptr(), n, h, w, pmaxc, s_pad, kernels.stream_ptr(dev))
+    return out
+
+
+def ebcot_symbols_plain(coeffs: torch.Tensor, lanes: torch.Tensor,
+                        tab: torch.Tensor, pmaxc: int) -> torch.Tensor:
+    """Plain torch form of K-c: the scan of the Pallas kernel with the
+    codeblock batch on the last axis, one stripe column (4 rows) per step.
+    State planes [Hp+2, W+2, n]: significance S, sign contribution CV
+    (0 or +-1), visited V, refined R. Within a column only the significance
+    of the row above changes between rows, so everything but the SPP
+    coding decisions is computed for the four rows at once."""
+    n, h, w = coeffs.shape
+    dev = coeffs.device
+    hp = _round_up(h, 4)
+    ns = hp // 4
+    s_spp, s_mrp, s_cup, s_pad = slot_counts(ns, w)
+    nb, hgt, wid, orient, sty = (lanes[i].to(torch.int64) for i in range(5))
+    tab = tab.to(torch.int64)
+    zc_lut, scc_t, scx_t = tab[:180], tab[180:189], tab[189:198]
+    o45 = orient * 45
+    vsc = (sty & 0x08) != 0
+    segsym = (sty & 0x20) != 0
+    bypass = (sty & 0x01) != 0
+    i64 = dict(dtype=torch.int64, device=dev)
+    zero = torch.zeros(n, **i64)
+    no = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    coef = torch.zeros((hp + 2, w + 2, n), **i64)
+    coef[1:h + 1, 1:w + 1] = coeffs.permute(1, 2, 0)
+    mag = coef.abs()
+    sgn = (coef < 0).to(torch.int64)
+    sgv = 1 - 2 * sgn  # the sign contribution once significant
+    S = torch.zeros((hp + 2, w + 2, n), **i64)
+    CV = torch.zeros_like(S)
+    V = torch.zeros_like(S)
+    R = torch.zeros_like(S)
+    ys = torch.arange(hp, device=dev)[:, None, None]
+    xs = torch.arange(w, device=dev)[None, :, None]
+    in_blk = (ys < hgt) & (xs < wid)  # [hp, w, n]
+    keep4 = torch.ones((4, n), **i64)
+    keep4[3] = (~vsc).to(torch.int64)  # VSC: no significance from below
+    kk = torch.arange(4, device=dev)[:, None]
+    out = torch.zeros((pmaxc, 3, s_pad, n), dtype=torch.uint8, device=dev)
+
+    def rec(valid, raw, bit, ctx):
+        return ((valid.to(torch.int64) << 7) | ((raw & valid).to(torch.int64) << 6)
+                | ((bit & 1) << 5) | ctx).to(torch.uint8)
+
+    def column(y0, x):
+        """Neighbourhood terms of the column's four rows that do not depend
+        on the row above: (LUT index, count, sign index, views)."""
+        Sw = S[y0:y0 + 6, x:x + 3]
+        Cw = CV[y0:y0 + 6, x:x + 3]
+        hh = Sw[1:5, 0] + Sw[1:5, 2]
+        vdn = Sw[2:6, 1] * keep4
+        dd = Sw[0:4, 0] + Sw[0:4, 2] + (Sw[2:6, 0] + Sw[2:6, 2]) * keep4
+        hb = (Cw[1:5, 0] + Cw[1:5, 2]).clamp(-1, 1)
+        return (o45 + hh * 15 + vdn * 5 + dd, hh + vdn + dd,
+                hb * 3 + 4, Cw[2:6, 1] * keep4, Sw, Cw)
+
+    def contexts(y0, x, part, hbp, cdn, Sw, Cw, sig_new, cv_new):
+        """ZC and SC contexts of the four rows given the column's updates."""
+        vup = torch.cat([Sw[0:1, 1], sig_new[:3]])
+        cup = torch.cat([Cw[0:1, 1], cv_new[:3]])
+        si = hbp + (cup + cdn).clamp(-1, 1)
+        return zc_lut[part + vup * 5], scc_t[si], scx_t[si]
+
+    def store(y0, x, sig_new, cv_new):
+        S[y0 + 1:y0 + 5, x + 1] = sig_new
+        CV[y0 + 1:y0 + 5, x + 1] = cv_new
+
+    for p in range(pmaxc):
+        plane = pmaxc - 1 - p
+        spp_m = nb - 1 > plane
+        cup_m = nb - 1 >= plane
+        raw_spp = pass_is_raw(bypass, local_pass_index(plane, 0, nb), 0)
+        raw_mrp = pass_is_raw(bypass, local_pass_index(plane, 1, nb), 1)
+        bits = (mag >> plane) & 1
+        inb_spp = in_blk & spp_m
+        inb_cup = in_blk & cup_m
+
+        # ---- SPP: a row is coded only with a significant neighbour, so
+        # the decision chain runs row by row
+        o = out[p, 0, :s_spp].view(ns, w, 4, 2, n)
+        for s in range(ns):
+            y0 = 4 * s
+            for x in range(w):
+                part, cnt, hbp, cdn, Sw, Cw = column(y0, x)
+                sig4 = Sw[1:5, 1]
+                b4 = bits[y0 + 1:y0 + 5, x + 1]
+                vup = Sw[0, 1]
+                codes, becs = [], []
+                for k in range(4):
+                    code = inb_spp[y0 + k, x] & (sig4[k] == 0) & (cnt[k] + vup > 0)
+                    became = code & (b4[k] == 1)
+                    vup = sig4[k] | became
+                    codes.append(code)
+                    becs.append(became)
+                code4 = torch.stack(codes)
+                bec4 = torch.stack(becs)
+                sig_new = sig4 | bec4
+                cv_new = torch.where(bec4, sgv[y0 + 1:y0 + 5, x + 1], Cw[1:5, 1])
+                ctx, scc, xr = contexts(y0, x, part, hbp, cdn, Sw, Cw, sig_new, cv_new)
+                sg = sgn[y0 + 1:y0 + 5, x + 1]
+                o[s, x, :, 0] = rec(code4, raw_spp, b4, ctx)
+                o[s, x, :, 1] = rec(bec4, raw_spp, torch.where(raw_spp, sg, sg ^ xr), scc)
+                store(y0, x, sig_new, cv_new)
+                V[y0 + 1:y0 + 5, x + 1] = code4
+
+        # ---- MRP: no decision feeds another, one step for the plane
+        Si = S[1:-1, 1:-1]
+        cut = torch.zeros((hp, 1, n), dtype=torch.bool, device=dev)
+        cut[3::4] = vsc
+        ncnt = (S[1:-1, :-2] + S[1:-1, 2:] + S[:-2, 1:-1] + S[:-2, :-2] + S[:-2, 2:]
+                + torch.where(cut, 0, S[2:, 1:-1] + S[2:, :-2] + S[2:, 2:]))
+        code = inb_spp & (Si == 1) & (V[1:-1, 1:-1] == 0)
+        ctx = torch.where(R[1:-1, 1:-1] == 1, CTX_MR0 + 2,
+                          torch.where(ncnt > 0, CTX_MR0 + 1, CTX_MR0))
+        r = rec(code, raw_mrp, bits[1:-1, 1:-1], ctx)  # [hp, w, n]
+        out[p, 1, :s_mrp] = r.view(ns, 4, w, n).permute(0, 2, 1, 3).reshape(s_mrp, n)
+        R[1:-1, 1:-1] |= code.to(torch.int64)
+
+        # ---- CUP: a row's decision depends on its own state only; the
+        # row above changes just its contexts
+        o = out[p, 2, :ns * w * 11].view(ns, w, 11, n)
+        for s in range(ns):
+            y0 = 4 * s
+            col_ok = ((y0 + 4) <= hgt) & cup_m
+            for x in range(w):
+                part, cnt, hbp, cdn, Sw, Cw = column(y0, x)
+                sig4 = Sw[1:5, 1]
+                vis4 = V[y0 + 1:y0 + 5, x + 1]
+                b4 = bits[y0 + 1:y0 + 5, x + 1]
+                free4 = (sig4 == 0) & (vis4 == 0)
+                rl = (col_ok & (x < wid) & free4.all(0)
+                      & ((cnt + Sw[0:4, 1]) == 0).all(0))
+                hit = rl & (b4 == 1)
+                fk = torch.where(hit[0], 0, torch.where(hit[1], 1, torch.where(
+                    hit[2], 2, torch.where(hit[3], 3, 4))))
+                sigcol = rl & (fk < 4)
+                o[s, x, 0] = rec(rl, no, sigcol.to(torch.int64), zero + CTX_RL)
+                o[s, x, 1] = rec(sigcol, no, (fk >> 1) & 1, zero + CTX_UNI)
+                o[s, x, 2] = rec(sigcol, no, fk & 1, zero + CTX_UNI)
+                implied = sigcol & (kk == fk)
+                zc_code = (inb_cup[y0:y0 + 4, x] & free4 & ~(rl & ~sigcol)
+                           & ~(sigcol & (kk < fk)) & ~implied)
+                bec4 = (zc_code & (b4 == 1)) | implied
+                sig_new = sig4 | bec4
+                cv_new = torch.where(bec4, sgv[y0 + 1:y0 + 5, x + 1], Cw[1:5, 1])
+                ctx, scc, xr = contexts(y0, x, part, hbp, cdn, Sw, Cw, sig_new, cv_new)
+                o[s, x, 3::2] = rec(zc_code, no, b4, ctx)
+                o[s, x, 4::2] = rec(bec4, no, sgn[y0 + 1:y0 + 5, x + 1] ^ xr, scc)
+                store(y0, x, sig_new, cv_new)
+        V.zero_()  # 'visited' restarts with the next plane
+        seg = segsym & cup_m
+        for j, b in enumerate((1, 0, 1, 0)):
+            out[p, 2, ns * w * 11 + j] = rec(seg, no, zero + b, zero + CTX_UNI)
+    return out
+
+
+# ====================================================== K-d: MQ packer
+def mq_pack(sym: torch.Tensor, numbps: torch.Tensor, styles: torch.Tensor,
+            table: torch.Tensor, h: int, w: int, pmax: int):
+    """Code the records into segments. Returns (buf [n, max_bytes + 2]
+    uint8 with byte 0 the carry byte, lengths [n] int64, pass_rates
+    [n, max(max_passes, 1)] int64); raises if a segment overflows."""
+    pmaxc, three, s_pad, n = sym.shape
+    dev = sym.device
+    _check(sym, "sym", torch.uint8, 4, dev)
+    _check(numbps, "numbps", torch.int32, 1, dev)
+    _check(styles, "styles", torch.int32, 1, dev)
+    _check(table, "table", torch.int32, 2, dev)
+    hp = _round_up(h, 4)
+    if three != 3 or s_pad != slot_counts(hp // 4, w)[3] or table.shape != (4, 47):
+        raise ValueError("sym must be [pmaxc, 3, s_pad, n], table [4, 47]")
+    if dev.type == "cpu":
+        return mq_pack_plain(sym, numbps, styles, table, h, w, pmax)
+    if dev.type != "cuda":
+        raise ValueError(f"mq_pack: unsupported device {dev}")
+    max_bytes = max_bytes_for(pmax, h, w)
+    max_passes = max(3 * pmax - 2, 1)
+    buf = torch.zeros((n, max_bytes + 2), dtype=torch.uint8, device=dev)
+    lengths = torch.empty(n, dtype=torch.int64, device=dev)
+    rates = torch.zeros((n, max_passes), dtype=torch.int64, device=dev)
+    kernels.KERNELS["mq_pack"].call(
+        sym.data_ptr(), numbps.data_ptr(), styles.data_ptr(), table.data_ptr(),
+        buf.data_ptr(), lengths.data_ptr(), rates.data_ptr(), n, pmaxc, s_pad,
+        hp // 4, w, max_bytes + 2, max_passes, kernels.stream_ptr(dev))
+    if bool((lengths < 0).any()):
+        raise RuntimeError("mq_pack: codeblock segment buffer overflow")
+    return buf, lengths, rates
+
+
+def mq_pack_plain(sym, numbps, styles, table, h: int, w: int, pmax: int):
+    """Plain torch form of K-d: the lane-parallel ``_pack_symbols`` loop,
+    slot rows with no valid record skipped."""
+    pmaxc, _, _, n = sym.shape
+    dev = sym.device
+    ns = _round_up(h, 4) // 4
+    s_spp, s_mrp, s_cup, _ = slot_counts(ns, w)
+    nb = numbps.to(torch.int64)
+    sty = styles.to(torch.int64)
+    max_bytes = max_bytes_for(pmax, h, w)
+    npasses = (nb * 3 - 2).clamp(min=0)
+    max_passes = max(3 * pmax - 2, 1)
+    mq = MQEncoder(n, max_bytes, table)
+    rates = torch.zeros((n, max_passes), dtype=torch.int64, device=dev)
+    termall = (sty & 0x04) != 0
+    bypass = (sty & 0x01) != 0
+    reset = (sty & 0x02) != 0
+    last_term = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def feed(stream):
+        st = stream.to(torch.int64)
+        kind = st & (_VALID | _RAW)
+        any_mq = (kind == _VALID).any(dim=1).tolist()
+        any_raw = (kind == (_VALID | _RAW)).any(dim=1).tolist()
+        for i in range(st.shape[0]):
+            if not (any_mq[i] or any_raw[i]):
+                continue
+            r = st[i]
+            bit = (r >> 5) & 1
+            if any_mq[i]:
+                mq.encode(bit, r & _CTXM, kind[i] == _VALID)
+            if any_raw[i]:
+                mq.raw_bit(bit, kind[i] == (_VALID | _RAW))
+
+    def end_pass(plane, kind, lane_mask):
+        lpi = local_pass_index(plane, kind, nb)
+        raw_m = pass_is_raw(bypass, lpi, kind) & lane_mask
+        term_m = term_after(termall, bypass, lpi) & lane_mask
+        r = torch.where(raw_m, mq.raw_safe_len(), mq.pos + (27 - mq.ct + 7) // 8)
+        t_mq = term_m & ~raw_m
+        t_raw = term_m & raw_m
+        if bool(t_mq.any()):
+            r = torch.where(t_mq, mq.terminate_restart(t_mq), r)
+        if bool(t_raw.any()):
+            r = torch.where(t_raw, mq.raw_terminate_restart_mq(t_raw), r)
+        idx = lpi.clamp(0, max_passes - 1)[:, None]
+        rates.scatter_(1, idx, torch.where(lane_mask, r, rates.gather(1, idx)[:, 0])[:, None])
+        last_term.copy_(torch.where(lane_mask, term_m, last_term))
+        mq.reset_ctx(reset & lane_mask)
+        nxt_raw = pass_is_raw(bypass, lpi + 1, (kind + 1) % 3) & term_m
+        if bool(nxt_raw.any()):
+            mq.raw_start(nxt_raw)
+
+    for plane in range(pmax - 1, -1, -1):
+        pidx = pmaxc - 1 - plane
+        spp_lanes = nb - 1 > plane
+        cup_lanes = nb - 1 >= plane
+        if bool(spp_lanes.any()):
+            feed(sym[pidx, 0, :s_spp])
+            end_pass(plane, 0, spp_lanes)
+            feed(sym[pidx, 1, :s_mrp])
+            end_pass(plane, 1, spp_lanes)
+        if bool(cup_lanes.any()):
+            feed(sym[pidx, 2, :s_cup])
+            end_pass(plane, 2, cup_lanes)
+
+    final_lpi = (npasses - 1).clamp(min=0)
+    fkind = torch.where(final_lpi == 0, 2, torch.remainder(final_lpi - 1, 3))
+    in_raw_tail = pass_is_raw(bypass, final_lpi, fkind) & ~last_term
+    lengths = torch.where(last_term, rates.gather(1, final_lpi[:, None])[:, 0], 0)
+    if bool(in_raw_tail.any()):
+        lengths = torch.where(in_raw_tail, mq.raw_terminate_restart_mq(in_raw_tail), lengths)
+    rest = ~last_term & ~in_raw_tail
+    mq.flush(rest)
+    lengths = torch.where(rest, mq.lengths(), lengths)
+    lengths = torch.where(npasses > 0, lengths, 0)
+    if bool((mq.overflow & (npasses > 0)).any()):
+        raise RuntimeError("mq_pack: codeblock segment buffer overflow")
+    rates.scatter_(1, final_lpi[:, None], lengths[:, None])
+    rates = torch.minimum(rates, lengths[:, None])
+    buf = torch.where((npasses > 0)[:, None], mq.buf, 0)
+    return buf, lengths, rates
+
+
+# ================================================ per-pass distortions
+def pass_dist_from_records(sym: torch.Tensor, coeffs: torch.Tensor,
+                           numbps: torch.Tensor, pmax: int) -> torch.Tensor:
+    """Distortion decrease per (lane, pass) in float64, from which records
+    became significant (SPP/CUP sign slots) or were refined (MRP slots)."""
+    n, h, w = coeffs.shape
+    pmaxc = sym.shape[0]
+    hp = _round_up(h, 4)
+    ns = hp // 4
+    s_spp, s_mrp, _, _ = slot_counts(ns, w)
+    nb = numbps.to(torch.int64)
+    max_passes = max(3 * pmax - 2, 1)
+    magp = torch.zeros((n, hp, w), dtype=torch.int64, device=coeffs.device)
+    magp[:, :h] = coeffs.abs()
+    mag_sxk = magp.view(n, ns, 4, w).permute(0, 1, 3, 2).reshape(n, -1)
+    dist = torch.zeros((n, max_passes), dtype=torch.float64, device=coeffs.device)
+
+    def put(plane, kind, lanes, mask_sn, dd_fn):
+        dd = torch.where(mask_sn.T, dd_fn(mag_sxk, plane), 0.0).sum(dim=1)
+        idx = local_pass_index(plane, kind, nb).clamp(0, max_passes - 1)[:, None]
+        dist.scatter_(1, idx, torch.where(lanes, dd, dist.gather(1, idx)[:, 0])[:, None])
+
+    for plane in range(pmax - 1, -1, -1):
+        pidx = pmaxc - 1 - plane
+        spp_lanes = nb - 1 > plane
+        cup_lanes = nb - 1 >= plane
+        became = (sym[pidx, 0, :s_spp].view(-1, 2, n)[:, 1] & _VALID) != 0
+        put(plane, 0, spp_lanes, became, dd_sig)
+        coded = (sym[pidx, 1, :s_mrp] & _VALID) != 0
+        put(plane, 1, spp_lanes, coded, dd_ref)
+        became = (sym[pidx, 2, :ns * w * 11].view(-1, 11, n)[:, 4::2] & _VALID) != 0
+        put(plane, 2, cup_lanes, became.reshape(-1, n), dd_sig)
+    return dist
+
+
+# ==================================================== public entry point
+def encode_cblks(coeffs: torch.Tensor, heights, widths, orients,
+                 styles=None, clock: StageClock | None = None) -> T1EncodeResult:
+    """Encode a batch of codeblocks on the device holding ``coeffs``.
+
+    coeffs: [N, H, W] int32 quantized coefficients (signed);
+    heights/widths/orients/styles: [N] per-lane extents, band orientation
+    codes and codeblock styles. The result's tensors stay on that device.
+    ``clock`` (optional) charges the scan, the packer and the distortion
+    sums to stages t1_symbols, t1_pack and t1_dist."""
+    clock = clock or StageClock(coeffs.device, None)
+    dev = coeffs.device
+    coeffs = coeffs.to(torch.int32).contiguous()
+    n, h, w = coeffs.shape
+    as_i64 = lambda a: torch.as_tensor(a, device=dev).to(torch.int64)  # noqa: E731
+    heights, widths, orients = as_i64(heights), as_i64(widths), as_i64(orients)
+    sty = torch.zeros(n, dtype=torch.int64, device=dev) if styles is None \
+        else as_i64(styles) & 0x3F
+    numbps = lane_numbps(coeffs.abs(), heights, widths)
+    pmax = int(numbps.max()) if n else 0
+    npasses = (numbps * 3 - 2).clamp(min=0)
+    if pmax == 0:
+        buf = torch.zeros((n, max_bytes_for(0, h, w) + 2), dtype=torch.uint8, device=dev)
+        return T1EncodeResult(
+            data=buf[:, 1:], raw_data=(buf, 1),
+            lengths=torch.zeros(n, dtype=torch.int64, device=dev),
+            numbps=numbps, npasses=npasses,
+            pass_rates=torch.zeros((n, 1), dtype=torch.int64, device=dev),
+            pass_dist=torch.zeros((n, 1), dtype=torch.float64, device=dev))
+    pmaxc = _round_up(pmax, 4)
+    lanes = torch.stack([numbps, heights, widths, orients, sty]).to(torch.int32).contiguous()
+    tabs = device_tables(dev)
+    sym = ebcot_symbols(coeffs, lanes, tabs["ctx"], pmaxc)
+    clock.mark("t1_symbols")
+    buf, lengths, rates = mq_pack(sym, lanes[0].contiguous(), lanes[4].contiguous(),
+                                  tabs["mq"], h, w, pmax)
+    clock.mark("t1_pack")
+    dist = pass_dist_from_records(sym, coeffs, numbps, pmax)
+    clock.mark("t1_dist")
+    return T1EncodeResult(data=buf[:, 1:], raw_data=(buf, 1), lengths=lengths,
+                          numbps=numbps, npasses=npasses, pass_rates=rates,
+                          pass_dist=dist)
+
+
+_TABLES: dict[str, dict[str, torch.Tensor]] = {}
+
+
+def device_tables(dev: torch.device) -> dict[str, torch.Tensor]:
+    """The coding tables on ``dev``, copied there once."""
+    key = str(dev)
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = {"ctx": ctx_table().to(dev), "mq": mq_table().to(dev).contiguous()}
+    return t
+

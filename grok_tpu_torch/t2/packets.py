@@ -1,0 +1,163 @@
+"""Packet header coding and packet assembly, encoder half (T.800
+B.9/B.10); counterpart of grok_tpu/t2/packets.py. Host-side serial work:
+the payload bytes come from the device T1 coder."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..codestream.bitio import BitWriter
+from ..tile.geometry import BandGeom, PrecinctGeom
+from .tagtree import TagTree
+
+
+def _floor_log2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def _segment_splits(style: int, start_pass: int, npasses: int) -> list[int]:
+    """Pass counts of the codeword segments covering passes
+    [start_pass, start_pass + npasses) (T.800 D.4 termination rules)."""
+    if style & 0x04:  # TERMALL: every pass is its own segment
+        return [1] * npasses
+    if style & 0x01:  # BYPASS: boundaries at MQ<->raw coder switches
+        def term_after(p):
+            t = 2 if p == 0 else (p - 1) % 3
+            return p == 9 or (p > 9 and t in (1, 2))
+
+        out = []
+        cur = 0
+        for p in range(start_pass, start_pass + npasses):
+            cur += 1
+            if term_after(p):
+                out.append(cur)
+                cur = 0
+        if cur:
+            out.append(cur)
+        return out
+    return [npasses]
+
+
+def write_numpasses(bio: BitWriter, n: int) -> None:
+    if n == 1:
+        bio.write_bit(0)
+    elif n == 2:
+        bio.write_bits(0b10, 2)
+    elif n <= 5:
+        bio.write_bits(0b11, 2)
+        bio.write_bits(n - 3, 2)
+    elif n <= 36:
+        bio.write_bits(0b1111, 4)
+        bio.write_bits(n - 6, 5)
+    else:
+        bio.write_bits(0b111111111, 9)
+        bio.write_bits(n - 37, 7)
+
+
+@dataclass
+class CblkEnc:
+    """Encoder-side codeblock T2 record."""
+
+    data: np.ndarray  # uint8 segment bytes
+    total_len: int
+    npasses: int
+    numbps: int  # coded magnitude planes (imsb = band Mb - numbps)
+    layer_passes: list[int] = field(default_factory=list)
+    layer_bytes: list[int] = field(default_factory=list)
+    lblock: int = 3
+    included: bool = False
+    passes_done: int = 0
+    bytes_done: int = 0
+    first_layer: int = 0
+    style: int = 0  # codeblock style (segmentation: TERMALL/BYPASS)
+    pass_rates: object = None  # cumulative byte offsets per pass
+
+
+class PrecinctCtx:
+    """Per-(band, precinct) mutable header-coding state."""
+
+    def __init__(self, band: BandGeom, prc: PrecinctGeom):
+        self.band = band
+        self.prc = prc
+        self.incl_tree = TagTree(prc.cblk_grid_w, prc.cblk_grid_h)
+        self.imsb_tree = TagTree(prc.cblk_grid_w, prc.cblk_grid_h)
+        self.cblks: list = [None] * len(prc.cblks)
+
+    def set_encoder_trees(self, num_layers: int) -> None:
+        gw, gh = self.prc.cblk_grid_w, self.prc.cblk_grid_h
+        if gw == 0 or gh == 0:
+            return
+        incl = np.full((gh, gw), num_layers, dtype=np.int64)
+        imsb = np.zeros((gh, gw), dtype=np.int64)
+        for geom, cb in zip(self.prc.cblks, self.cblks):
+            if cb is None:
+                continue
+            incl[geom.cy, geom.cx] = cb.first_layer if cb.npasses > 0 else num_layers
+            imsb[geom.cy, geom.cx] = self.band.num_bps - cb.numbps
+        self.incl_tree.set_values(incl)
+        self.imsb_tree.set_values(imsb)
+
+
+def encode_packet(prc_ctxs: list[PrecinctCtx], layer: int) -> bytes:
+    """Encode one packet: all bands of one precinct of one res/comp/layer."""
+    bio = BitWriter()
+    body = bytearray()
+    any_data = any(
+        cb is not None and layer < len(cb.layer_passes)
+        and cb.layer_passes[layer] > 0
+        for ctx in prc_ctxs for cb in ctx.cblks)
+
+    if not any_data:
+        bio.write_bit(0)
+    else:
+        bio.write_bit(1)
+        for ctx in prc_ctxs:
+            for geom, cb in zip(ctx.prc.cblks, ctx.cblks):
+                if cb is None:
+                    continue
+                npl = cb.layer_passes[layer] if layer < len(cb.layer_passes) else 0
+                if not cb.included:
+                    ctx.incl_tree.encode(bio, geom.cx, geom.cy, layer + 1)
+                else:
+                    bio.write_bit(1 if npl > 0 else 0)
+                if npl == 0:
+                    continue
+                if not cb.included:
+                    # first inclusion: missing MSBs via the imsb tree
+                    imsb = ctx.band.num_bps - cb.numbps
+                    ctx.imsb_tree.encode(bio, geom.cx, geom.cy, imsb + 1)
+                    cb.included = True
+                write_numpasses(bio, npl)
+                # one length per codeword segment (T.800 B.10.7.2)
+                splits = _segment_splits(cb.style, cb.passes_done, npl)
+                if len(splits) == 1:
+                    seg_bytes = [cb.layer_bytes[layer]]
+                else:
+                    r = cb.pass_rates
+                    p0 = cb.passes_done
+                    seg_bytes = []
+                    prev = int(r[p0 - 1]) if p0 > 0 else 0
+                    pcur = p0
+                    for np_s in splits:
+                        pcur += np_s
+                        cur = int(r[pcur - 1])
+                        seg_bytes.append(cur - prev)
+                        prev = cur
+                inc = 0
+                for np_s, nb_s in zip(splits, seg_bytes):
+                    needed = max(1, int(nb_s).bit_length())
+                    inc = max(inc, needed - (cb.lblock + _floor_log2(np_s)))
+                for _ in range(inc):
+                    bio.write_bit(1)
+                cb.lblock += inc
+                bio.write_bit(0)
+                for np_s, nb_s in zip(splits, seg_bytes):
+                    bio.write_bits(nb_s, cb.lblock + _floor_log2(np_s))
+                nbytes = sum(seg_bytes)
+                body += cb.data[cb.bytes_done: cb.bytes_done + nbytes].tobytes()
+                cb.bytes_done += nbytes
+                cb.passes_done += npl
+    bio.flush()
+    return bio.getvalue() + bytes(body)

@@ -1,0 +1,72 @@
+"""Tag trees (T.800 B.10.2), encoder half: 2-D quad-tree coding of
+per-codeblock inclusion layers and missing-MSB counts inside a precinct.
+Counterpart of grok_tpu/t2/tagtree.py."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..codestream.bitio import BitWriter
+
+
+class TagTree:
+    def __init__(self, w: int, h: int):
+        self.w = max(w, 0)
+        self.h = max(h, 0)
+        # level 0 = leaves; halve up to 1x1
+        self.levels: list[tuple[int, int]] = []
+        lw, lh = max(w, 1), max(h, 1)
+        while True:
+            self.levels.append((lw, lh))
+            if lw == 1 and lh == 1:
+                break
+            lw = (lw + 1) // 2
+            lh = (lh + 1) // 2
+        self.values = [np.zeros((lh, lw), dtype=np.int64) for (lw, lh) in self.levels]
+        self.lows = [np.zeros((lh, lw), dtype=np.int64) for (lw, lh) in self.levels]
+        self.known = [np.zeros((lh, lw), dtype=bool) for (lw, lh) in self.levels]
+
+    def set_values(self, vals: np.ndarray) -> None:
+        """Set leaf values [h, w] and propagate mins up the tree."""
+        self.values[0][: self.h, : self.w] = vals
+        for lvl in range(1, len(self.levels)):
+            below = self.values[lvl - 1]
+            lw, lh = self.levels[lvl]
+            cur = np.full((lh, lw), np.iinfo(np.int64).max, dtype=np.int64)
+            for dy in range(2):
+                for dx in range(2):
+                    part = below[dy::2, dx::2]
+                    cur[: part.shape[0], : part.shape[1]] = np.minimum(
+                        cur[: part.shape[0], : part.shape[1]], part)
+            self.values[lvl] = cur
+        for a in self.lows:
+            a[:] = 0
+        for a in self.known:
+            a[:] = False
+
+    def _path(self, x: int, y: int):
+        """Nodes root -> leaf as (level, y, x)."""
+        out = []
+        cx, cy = x, y
+        for lvl in range(len(self.levels)):
+            out.append((lvl, cy, cx))
+            cx //= 2
+            cy //= 2
+        return list(reversed(out))
+
+    def encode(self, bio: BitWriter, x: int, y: int, threshold: int) -> None:
+        tmin = 0
+        for (lvl, cy, cx) in self._path(x, y):
+            low = self.lows[lvl][cy, cx]
+            if low < tmin:
+                low = tmin
+            val = self.values[lvl][cy, cx]
+            while low < threshold and not self.known[lvl][cy, cx]:
+                if val > low:
+                    bio.write_bit(0)
+                    low += 1
+                else:
+                    bio.write_bit(1)
+                    self.known[lvl][cy, cx] = True
+            self.lows[lvl][cy, cx] = low
+            tmin = low

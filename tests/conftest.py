@@ -31,6 +31,11 @@ for cand in ("/tmp/grok-build/bin", "/usr/local/bin", "/usr/bin"):
         break
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (grok_tpu_torch kernels); skips without one")
+
+
 def have_grok() -> bool:
     return GRK_BIN is not None
 

@@ -1,0 +1,75 @@
+"""grok_tpu_torch.convert: grok_tpu's coding tables and parameters carried
+into the port's tensors and dataclasses, held against the port's own
+built-in copies."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import grok_tpu as gk
+import grok_tpu_torch as gt
+from grok_tpu.codestream.quantizer import band_norm as ref_band_norm
+from grok_tpu.t1 import ebcot_np, mq_np
+from grok_tpu_torch import convert
+from grok_tpu_torch.t1.ebcot_cuda import device_tables
+
+
+def _reference_tables() -> dict:
+    return {
+        "_ZC_LUT": ebcot_np._ZC_LUT, "_SC_CTX": ebcot_np._SC_CTX, "_SC_XOR": ebcot_np._SC_XOR,
+        "QE": mq_np.QE, "NMPS": mq_np.NMPS, "NLPS": mq_np.NLPS, "SWITCH": mq_np.SWITCH,
+        "band_norms": np.array([[ref_band_norm(False, o, lv)
+                                 for lv in range(1, convert.NORM_LEVELS + 1)]
+                                for o in range(4)]),
+    }
+
+
+def test_reference_tables_equal_builtin_copies():
+    ref = convert.tables_from_numpy(_reference_tables(), device="cpu")
+    own = convert.builtin_tables(device="cpu")
+    assert set(ref) == set(own) == {"ctx", "mq", "band_norms"}
+    assert torch.equal(ref["ctx"], own["ctx"]) and ref["ctx"].dtype == torch.int32
+    assert torch.equal(ref["mq"], own["mq"]) and tuple(ref["mq"].shape) == (4, 47)
+    # the norms come from the same float64 recurrence: equal to the last bit
+    assert torch.equal(ref["band_norms"], own["band_norms"])
+    # and they are what the kernels are given
+    dev = device_tables(torch.device("cpu"))
+    assert torch.equal(dev["ctx"], own["ctx"]) and torch.equal(dev["mq"], own["mq"])
+
+
+def test_tables_of_the_wrong_shape_raise():
+    d = _reference_tables()
+    d["QE"] = d["QE"][:46]
+    with pytest.raises(ValueError):
+        convert.tables_from_numpy(d)
+    d = _reference_tables()
+    d["band_norms"] = d["band_norms"][:, :5]
+    with pytest.raises(ValueError):
+        convert.tables_from_numpy(d)
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    dict(num_resolutions=3, cblk_width=32, cblk_height=16, cblk_style=0x3F,
+         progression=gk.ProgressionOrder.CPRL, tile_size=(64, 32), tile_offset=(1, 2),
+         image_offset=(3, 4), comment="x", guard_bits=1, mct=0),
+])
+def test_params_carry_over(kw):
+    ref = gk.CompressParams(**kw)
+    got = convert.params_from_dict(dataclasses.asdict(ref))
+    assert isinstance(got, gt.CompressParams)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert isinstance(got.progression, gt.ProgressionOrder)
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(ref)]
+
+
+def test_default_params_agree_with_reference():
+    assert dataclasses.asdict(gt.CompressParams()) == dataclasses.asdict(gk.CompressParams())
+
+
+def test_unknown_param_field_raises():
+    with pytest.raises(gt.ParameterError):
+        convert.params_from_dict({"num_resolutions": 3, "no_such_field": 1})
