@@ -13,15 +13,18 @@ line):
               K-d on a seeded sample of codeblocks from every band type
               (plain versions on the CPU); all integer, compared exactly
   5. slice    256x256x3 compress on the card, byte-identical to the plain
-              path (device="cpu"), codestream framing checked
+              path (device="cpu") and to grok_tpu's stream (REF_SHA256)
   6. e2e      3840x2160x3 lossless53 (CompressParams(num_resolutions=6))
               compressed three times like three requests: per-stage ms,
-              end-to-end ms, MP/s, bytes; every kernel must have launched
+              end-to-end ms, MP/s, bytes; each stream must have grok_tpu's
+              length and SHA-256 (REF_SHA256), and every kernel must have
+              launched
 Then the kernel summary line, the nvidia-smi line and the result line.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -32,6 +35,13 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 33.5e12  # H100 SXM peak INT32 rate, NVIDIA H100 white paper
 W, H, NC = 3840, 2160, 3
+# (bytes, SHA-256) of grok_tpu.compress on natural_image at num_resolutions=6
+# (tests/test_torch_chip_digest.py holds the reference to these constants)
+REF_SHA256 = {
+    "256x256x3": (147007, "c8e5192c60295212783a605cc25055a893555e279f14797bf4913bd12baea422"),
+    "2160x3840x3": (18521590,
+                    "871125ffbdb4a5224ec007141915b9ef1668cc55aae99b59bb83f4b283006e25"),
+}
 
 
 def natural_image(h, w, nc=3):
@@ -52,6 +62,12 @@ def natural_image(h, w, nc=3):
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def digest_ok(stream: bytes, key: str) -> tuple[str, bool]:
+    """SHA-256 of a stream and whether it and its length are grok_tpu's."""
+    sha = hashlib.sha256(stream).hexdigest()
+    return sha, (len(stream), sha) == REF_SHA256[key]
 
 
 def cuda_ms(torch, fn, reps=5):
@@ -213,11 +229,14 @@ def main() -> int:
         p_sym, s_lanes[0].cpu(), s_lanes[4].cpu(), tabs["mq"].cpu(), bh, bw, s_pmax))
     err_d = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
                 for a, b in zip(k_out, p_out))
-    s_pad = sym.shape[2]
+    s_pad = sym.shape[3]
     s_spp, s_mrp, s_cup, _ = ec.slot_counts(-(-bh // 4), bw)
     nbh = numbps.cpu().numpy()
     read_d = int(sum(max(int(b) - 1, 0) * (s_spp + s_mrp) + int(b) * s_cup for b in nbh))
     written_d = int(packed[1].sum()) + n  # segment bytes and each lane's carry byte
+    # the records the coder codes: what sizes K-d's serial chain
+    valid = torch.cat([(sym[i:i + 512] >= 0x80).reshape(-1, pmaxc * 3 * s_pad).sum(1)
+                       for i in range(0, n, 512)])
     records = pmaxc * 3 * s_pad * n
     sample = (f"{len(pick)} codeblocks ("
               + ", ".join(f"{(orients[pick] == o).sum()} orient {o}" for o in range(4))
@@ -233,7 +252,9 @@ def main() -> int:
         max_abs_err=err_d, ms=ms_d, plain_ms=plain_ms_d, library_ms=None,
         bytes=read_d + written_d + n * 8 + packed[2].numel() * 8, ops=read_d,
         shape=f"{n} codeblocks, records of coded planes {read_d} B, segments {written_d} B",
-        plain_shape=sample, sample_ms=sample_ms_d)
+        plain_shape=sample, sample_ms=sample_ms_d, valid_records=int(valid.sum()),
+        max_valid_records_one_codeblock=int(valid.max()),
+        sample_max_valid_records=int(valid[idx].max()))
     for name, s in stats.items():
         bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = s["ops"] / INT32_OPS_PER_S * 1e3
@@ -252,15 +273,16 @@ def main() -> int:
     s_cpu = gt.compress(gt.Image.from_array(small), gt.CompressParams(num_resolutions=6),
                         device="cpu")
     t2 = time.perf_counter()
-    ok = (s_gpu == s_cpu and s_gpu[:4] == b"\xff\x4f\xff\x51" and s_gpu[-2:] == b"\xff\xd9")
+    sha, ref_ok = digest_ok(s_gpu, "256x256x3")
     emit({"phase": "slice", "image": "256x256x3", "bytes": len(s_gpu), "identical": s_gpu == s_cpu,
+          "sha256": sha, "reference_digest": ref_ok,
           "gpu_ms": (t1 - t0) * 1e3, "plain_cpu_ms": (t2 - t1) * 1e3})
-    if not ok:
-        raise AssertionError("256x256 kernel-path stream differs from the plain path")
+    if s_gpu != s_cpu or not ref_ok:
+        raise AssertionError("256x256 card stream differs from the plain path or grok_tpu's")
 
     # ---- 6. full size, three requests
     gt.reset_launch_counts()
-    runs, streams = [], []
+    runs = []
     for i in range(3):
         stage: dict[str, float] = {}
         img = gt.Image.from_array(arr)
@@ -269,17 +291,18 @@ def main() -> int:
         out = gt.compress(img, gt.CompressParams(num_resolutions=6), stage_ms=stage)
         torch.cuda.synchronize()
         e2e = (time.perf_counter() - t0) * 1e3
-        streams.append(out)
+        sha, ref_ok = digest_ok(out, f"{H}x{W}x{NC}")
         runs.append({"request": i, "e2e_ms": e2e, "mp_per_s": W * H / 1e6 / (e2e / 1e3),
-                     "bytes": len(out), "stage_ms": stage})
+                     "bytes": len(out), "sha256": sha, "reference_digest": ref_ok,
+                     "stage_ms": stage})
         emit({"phase": "e2e", **runs[-1]})
+        if not ref_ok:
+            raise AssertionError(f"request {i}: the stream is not grok_tpu's ({len(out)} B)")
     counts = gt.launch_counts()
     emit({"phase": "e2e_launches", "image": f"{W}x{H}x{NC} lossless53", "requests": 3,
           "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if any(v <= 0 for v in counts.values()):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
-    if len(set(streams)) != 1 or streams[0][:4] != b"\xff\x4f\xff\x51" or streams[0][-2:] != b"\xff\xd9":
-        raise AssertionError("full-size streams are not identical well-framed codestreams")
 
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",

@@ -63,7 +63,7 @@ KERNELS: dict[str, Kernel] = {
                (_P, _P, _I32, _I32, _I32, _I32, _I32, _P)),
         Kernel("ebcot_symbols", "ebcot_symbols.cu",
                "grok_tpu/t1/ebcot_pallas.py:70 (K1: _build_kernel_wide)",
-               (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _P)),
+               (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _P)),
         Kernel("mq_pack", "mq_pack.cu",
                "grok_tpu/t1/ebcot_pallas.py:399 (host packer of K1)",
                (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I64, _I32, _I32,

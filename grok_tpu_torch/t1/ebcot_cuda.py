@@ -68,7 +68,8 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
 # ===================================================== K-c: symbol scan
 def ebcot_symbols(coeffs: torch.Tensor, lanes: torch.Tensor, tab: torch.Tensor,
                   pmaxc: int) -> torch.Tensor:
-    """Symbol records [pmaxc, 3, s_pad, n] uint8 of a codeblock batch.
+    """Symbol records [n, pmaxc, 3, s_pad] uint8 of a codeblock batch
+    (codeblock-major, the layout the Pallas kernel emits).
 
     coeffs: [n, h, w] int32; lanes: [5, n] int32 rows numbps, height,
     width, orient, style; tab: [198] int32 (t1.ebcot.ctx_table)."""
@@ -83,14 +84,11 @@ def ebcot_symbols(coeffs: torch.Tensor, lanes: torch.Tensor, tab: torch.Tensor,
         return ebcot_symbols_plain(coeffs, lanes, tab, pmaxc)
     if dev.type != "cuda":
         raise ValueError(f"ebcot_symbols: unsupported device {dev}")
-    hp = _round_up(h, 4)
-    s_pad = slot_counts(hp // 4, w)[3]
-    coef_lm = coeffs.permute(1, 2, 0).contiguous()  # [h, w, n] lane-minor
-    flags = torch.empty(((hp + 2) * (w + 2), n), dtype=torch.uint8, device=dev)
-    out = torch.empty((pmaxc, 3, s_pad, n), dtype=torch.uint8, device=dev)
+    s_pad = slot_counts(_round_up(h, 4) // 4, w)[3]
+    out = torch.empty((n, pmaxc, 3, s_pad), dtype=torch.uint8, device=dev)
     kernels.KERNELS["ebcot_symbols"].call(
-        coef_lm.data_ptr(), lanes.data_ptr(), tab.data_ptr(), flags.data_ptr(),
-        out.data_ptr(), n, h, w, pmaxc, s_pad, kernels.stream_ptr(dev))
+        coeffs.data_ptr(), lanes.data_ptr(), tab.data_ptr(), out.data_ptr(),
+        n, h, w, pmaxc, s_pad, kernels.stream_ptr(dev))
     return out
 
 
@@ -101,7 +99,8 @@ def ebcot_symbols_plain(coeffs: torch.Tensor, lanes: torch.Tensor,
     State planes [Hp+2, W+2, n]: significance S, sign contribution CV
     (0 or +-1), visited V, refined R. Within a column only the significance
     of the row above changes between rows, so everything but the SPP
-    coding decisions is computed for the four rows at once."""
+    coding decisions is computed for the four rows at once. The records
+    are built lane-minor and permuted to [n, pmaxc, 3, s_pad] at the end."""
     n, h, w = coeffs.shape
     dev = coeffs.device
     hp = _round_up(h, 4)
@@ -248,7 +247,7 @@ def ebcot_symbols_plain(coeffs: torch.Tensor, lanes: torch.Tensor,
         seg = segsym & cup_m
         for j, b in enumerate((1, 0, 1, 0)):
             out[p, 2, ns * w * 11 + j] = rec(seg, no, zero + b, zero + CTX_UNI)
-    return out
+    return out.permute(3, 0, 1, 2).contiguous()
 
 
 # ====================================================== K-d: MQ packer
@@ -257,7 +256,7 @@ def mq_pack(sym: torch.Tensor, numbps: torch.Tensor, styles: torch.Tensor,
     """Code the records into segments. Returns (buf [n, max_bytes + 2]
     uint8 with byte 0 the carry byte, lengths [n] int64, pass_rates
     [n, max(max_passes, 1)] int64); raises if a segment overflows."""
-    pmaxc, three, s_pad, n = sym.shape
+    n, pmaxc, three, s_pad = sym.shape
     dev = sym.device
     _check(sym, "sym", torch.uint8, 4, dev)
     _check(numbps, "numbps", torch.int32, 1, dev)
@@ -265,11 +264,13 @@ def mq_pack(sym: torch.Tensor, numbps: torch.Tensor, styles: torch.Tensor,
     _check(table, "table", torch.int32, 2, dev)
     hp = _round_up(h, 4)
     if three != 3 or s_pad != slot_counts(hp // 4, w)[3] or table.shape != (4, 47):
-        raise ValueError("sym must be [pmaxc, 3, s_pad, n], table [4, 47]")
+        raise ValueError("sym must be [n, pmaxc, 3, s_pad], table [4, 47]")
     if dev.type == "cpu":
         return mq_pack_plain(sym, numbps, styles, table, h, w, pmax)
     if dev.type != "cuda":
         raise ValueError(f"mq_pack: unsupported device {dev}")
+    if sym.data_ptr() % 16:
+        raise ValueError("mq_pack: sym must start on a 16-byte boundary")
     max_bytes = max_bytes_for(pmax, h, w)
     max_passes = max(3 * pmax - 2, 1)
     buf = torch.zeros((n, max_bytes + 2), dtype=torch.uint8, device=dev)
@@ -287,7 +288,7 @@ def mq_pack(sym: torch.Tensor, numbps: torch.Tensor, styles: torch.Tensor,
 def mq_pack_plain(sym, numbps, styles, table, h: int, w: int, pmax: int):
     """Plain torch form of K-d: the lane-parallel ``_pack_symbols`` loop,
     slot rows with no valid record skipped."""
-    pmaxc, _, _, n = sym.shape
+    n, pmaxc = sym.shape[:2]
     dev = sym.device
     ns = _round_up(h, 4) // 4
     s_spp, s_mrp, s_cup, _ = slot_counts(ns, w)
@@ -304,7 +305,7 @@ def mq_pack_plain(sym, numbps, styles, table, h: int, w: int, pmax: int):
     last_term = torch.zeros(n, dtype=torch.bool, device=dev)
 
     def feed(stream):
-        st = stream.to(torch.int64)
+        st = stream.T.to(torch.int64)  # [slots, n]
         kind = st & (_VALID | _RAW)
         any_mq = (kind == _VALID).any(dim=1).tolist()
         any_raw = (kind == (_VALID | _RAW)).any(dim=1).tolist()
@@ -342,12 +343,12 @@ def mq_pack_plain(sym, numbps, styles, table, h: int, w: int, pmax: int):
         spp_lanes = nb - 1 > plane
         cup_lanes = nb - 1 >= plane
         if bool(spp_lanes.any()):
-            feed(sym[pidx, 0, :s_spp])
+            feed(sym[:, pidx, 0, :s_spp])
             end_pass(plane, 0, spp_lanes)
-            feed(sym[pidx, 1, :s_mrp])
+            feed(sym[:, pidx, 1, :s_mrp])
             end_pass(plane, 1, spp_lanes)
         if bool(cup_lanes.any()):
-            feed(sym[pidx, 2, :s_cup])
+            feed(sym[:, pidx, 2, :s_cup])
             end_pass(plane, 2, cup_lanes)
 
     final_lpi = (npasses - 1).clamp(min=0)
@@ -374,7 +375,7 @@ def pass_dist_from_records(sym: torch.Tensor, coeffs: torch.Tensor,
     """Distortion decrease per (lane, pass) in float64, from which records
     became significant (SPP/CUP sign slots) or were refined (MRP slots)."""
     n, h, w = coeffs.shape
-    pmaxc = sym.shape[0]
+    pmaxc = sym.shape[1]
     hp = _round_up(h, 4)
     ns = hp // 4
     s_spp, s_mrp, _, _ = slot_counts(ns, w)
@@ -385,8 +386,8 @@ def pass_dist_from_records(sym: torch.Tensor, coeffs: torch.Tensor,
     mag_sxk = magp.view(n, ns, 4, w).permute(0, 1, 3, 2).reshape(n, -1)
     dist = torch.zeros((n, max_passes), dtype=torch.float64, device=coeffs.device)
 
-    def put(plane, kind, lanes, mask_sn, dd_fn):
-        dd = torch.where(mask_sn.T, dd_fn(mag_sxk, plane), 0.0).sum(dim=1)
+    def put(plane, kind, lanes, mask_ns, dd_fn):
+        dd = torch.where(mask_ns, dd_fn(mag_sxk, plane), 0.0).sum(dim=1)
         idx = local_pass_index(plane, kind, nb).clamp(0, max_passes - 1)[:, None]
         dist.scatter_(1, idx, torch.where(lanes, dd, dist.gather(1, idx)[:, 0])[:, None])
 
@@ -394,12 +395,12 @@ def pass_dist_from_records(sym: torch.Tensor, coeffs: torch.Tensor,
         pidx = pmaxc - 1 - plane
         spp_lanes = nb - 1 > plane
         cup_lanes = nb - 1 >= plane
-        became = (sym[pidx, 0, :s_spp].view(-1, 2, n)[:, 1] & _VALID) != 0
+        became = (sym[:, pidx, 0, :s_spp].view(n, -1, 2)[:, :, 1] & _VALID) != 0
         put(plane, 0, spp_lanes, became, dd_sig)
-        coded = (sym[pidx, 1, :s_mrp] & _VALID) != 0
+        coded = (sym[:, pidx, 1, :s_mrp] & _VALID) != 0
         put(plane, 1, spp_lanes, coded, dd_ref)
-        became = (sym[pidx, 2, :ns * w * 11].view(-1, 11, n)[:, 4::2] & _VALID) != 0
-        put(plane, 2, cup_lanes, became.reshape(-1, n), dd_sig)
+        became = (sym[:, pidx, 2, :ns * w * 11].view(n, -1, 11)[:, :, 4::2] & _VALID) != 0
+        put(plane, 2, cup_lanes, became.reshape(n, -1), dd_sig)
     return dist
 
 

@@ -14,6 +14,7 @@ import torch
 from grok_tpu.t1 import ebcot_np, ebcot_pallas
 from grok_tpu_torch.t1 import ebcot_cuda
 from grok_tpu_torch.t1.ebcot import ctx_table, lane_numbps
+from grok_tpu_torch.t1.mq import mq_table
 
 
 def _lanes(coeffs, heights, widths, orients, styles):
@@ -45,7 +46,7 @@ def test_symbol_records_match_pallas_interpret(monkeypatch, seed, shape, lo, hei
     heights, widths = np.array(heights), np.array(widths)
     orients, styles = np.array(orients), np.array(styles, dtype=np.int64)
     ebcot_pallas.encode_cblks(coeffs, heights, widths, orients, styles=styles)
-    ref = captured[0].transpose(1, 2, 3, 0)  # -> [PMAXC, 3, S_PAD, n]
+    ref = captured[0]  # [n, PMAXC, 3, S_PAD], the port's layout as it is
 
     c, lanes, pmax = _lanes(coeffs, heights, widths, orients, styles)
     pmaxc = -(-pmax // 4) * 4
@@ -88,6 +89,33 @@ def test_encode_cblks_mixed_geometry_default_style():
     coeffs = rng.integers(-15, 15, size=(3, 8, 6)).astype(np.int64)
     coeffs[2, 4:, :] = 0
     _compare_encode(coeffs, np.array([8, 5, 8]), np.array([6, 6, 4]), np.array([0, 1, 3]))
+
+
+@pytest.mark.parametrize("style", [0x00, 0x3F])
+def test_plain_stages_in_record_layout_match_ebcot_np(style):
+    """The three stages by hand on [n, pmaxc, 3, s_pad] records, with a
+    different height and width in every lane (partial stripes included)."""
+    rng = np.random.default_rng(90 + style)
+    n, h, w = 5, 13, 10
+    coeffs = rng.integers(-900, 900, size=(n, h, w)).astype(np.int64)
+    heights = np.array([13, 9, 4, 11, 1])
+    widths = np.array([10, 7, 10, 3, 9])
+    orients = np.array([0, 1, 2, 3, 1])
+    styles = np.full(n, style, dtype=np.int64)
+    ref = ebcot_np.encode_cblks(coeffs, heights, widths, orients, styles=styles)
+    c, lanes, pmax = _lanes(coeffs, heights, widths, orients, styles)
+    pmaxc = -(-pmax // 4) * 4
+    sym = ebcot_cuda.ebcot_symbols_plain(c, lanes, ctx_table(), pmaxc)
+    assert tuple(sym.shape) == (n, pmaxc, 3, ebcot_cuda.slot_counts(4, w)[3])
+    buf, lengths, rates = ebcot_cuda.mq_pack_plain(
+        sym, lanes[0].contiguous(), lanes[4].contiguous(), mq_table(), h, w, pmax)
+    dist = ebcot_cuda.pass_dist_from_records(sym, c, lanes[0], pmax)
+    np.testing.assert_array_equal(lengths.numpy(), ref.lengths)
+    for i in range(n):
+        ln = int(ref.lengths[i])
+        assert bytes(buf[i, 1:1 + ln].numpy()) == bytes(ref.data[i, :ln]), f"lane {i}"
+    np.testing.assert_array_equal(rates.numpy(), ref.pass_rates)
+    np.testing.assert_allclose(dist.numpy(), ref.pass_dist, rtol=1e-12, atol=0)
 
 
 def test_encode_cblks_all_zero_batch():
