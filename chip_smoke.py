@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive grok_tpu_torch's Part-1 lossless encode on one CUDA card.
+"""Drive grok_tpu_torch's two lossless paths on one CUDA card: the Part-1
+encode and the HTJ2K encode and decode.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -7,18 +8,26 @@ Phases, one JSON line each (any failure exits non-zero before the last
 line):
   1. device   card name and power limit (nvidia-smi)
   2. build    nvcc of every kernel source, in parallel, with build seconds
-  3. kernels  every kernel of the path and the TPU kernel it replaces
-  4. check    each kernel against its plain torch version on inputs from
-              the 3840x2160x3 image: K-a and K-b on the whole image, K-c and
-              K-d on a seeded sample of codeblocks from every band type
-              (plain versions on the CPU); all integer, compared exactly
+  3. kernels  every kernel of the paths and the TPU kernel it replaces
+  4. check    each kernel against its plain version on inputs from the
+              3840x2160x3 image: K-a, K-b, K-g and K-h on the whole image
+              (plain versions on the card), K-c, K-d, K-e and K-f on a
+              seeded sample of codeblocks from every band type (plain
+              versions on the CPU; K-e and K-f timed on the whole batch);
+              all integer, compared exactly
   5. slice    256x256x3 compress on the card, byte-identical to the plain
-              path (device="cpu") and to grok_tpu's stream (REF_SHA256)
+              path (device="cpu") and to grok_tpu's stream (REF_SHA256);
+     slice_ht the same with ht=True, and the card's decode of it equal to
+              the plain path's and to the input
   6. e2e      3840x2160x3 lossless53 (CompressParams(num_resolutions=6))
               compressed three times like three requests: per-stage ms,
               end-to-end ms, MP/s, bytes; each stream must have grok_tpu's
-              length and SHA-256 (REF_SHA256), and every kernel must have
-              launched
+              length and SHA-256 (REF_SHA256), and every kernel of the path
+              must have launched
+  7. e2e_ht   3840x2160x3 ht_lossless (the same with ht=True) compressed
+              three times, each stream with grok_tpu's length and SHA-256,
+              then decoded three times, each image equal to the input;
+              every kernel of the path must have launched
 Then the kernel summary line, the nvidia-smi line and the result line.
 """
 
@@ -37,11 +46,19 @@ INT32_OPS_PER_S = 33.5e12  # H100 SXM peak INT32 rate, NVIDIA H100 white paper
 W, H, NC = 3840, 2160, 3
 # (bytes, SHA-256) of grok_tpu.compress on natural_image at num_resolutions=6
 # (tests/test_torch_chip_digest.py holds the reference to these constants)
+# and, under the keys "ht ...", with ht=True
 REF_SHA256 = {
     "256x256x3": (147007, "c8e5192c60295212783a605cc25055a893555e279f14797bf4913bd12baea422"),
     "2160x3840x3": (18521590,
                     "871125ffbdb4a5224ec007141915b9ef1668cc55aae99b59bb83f4b283006e25"),
+    "ht 256x256x3": (156314,
+                     "981b10cd866a02d916f23f83803eabed0a674dbecef23ee88ff70b29c624762e"),
+    "ht 2160x3840x3": (19715221,
+                       "79cb44cc7426e51a469c80f9274908a7b356066fc835aed2d089309819b7f64f"),
 }
+PART1_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ebcot_symbols", "mq_pack")
+HT_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ht_cleanup_enc", "ht_cleanup_dec",
+              "dwt53_inv_level", "rct_inv_dc_clip")
 
 
 def natural_image(h, w, nc=3):
@@ -107,6 +124,7 @@ def main() -> int:
     from grok_tpu_torch.codestream.quantizer import apply_band_quant
     from grok_tpu_torch.ops import transform as tr
     from grok_tpu_torch.t1 import ebcot_cuda as ec
+    from grok_tpu_torch.t1 import ht_cuda as hc
     from grok_tpu_torch.t1.ebcot import lane_numbps
     from grok_tpu_torch.tile.tile_processor import TileProcessor
 
@@ -255,6 +273,85 @@ def main() -> int:
         plain_shape=sample, sample_ms=sample_ms_d, valid_records=int(valid.sum()),
         max_valid_records_one_codeblock=int(valid.max()),
         sample_max_valid_records=int(valid[idx].max()))
+    del sym, packed, s_sym
+
+    # K-e / K-f: full 4K batch on the card, the same sample against the
+    # plain versions on the CPU
+    h32 = plan.heights.to(torch.int32).contiguous()
+    w32 = plan.widths.to(torch.int32).contiguous()
+    htab = hc.ht_tables(dev)
+    mmax = max((2 * int(batch.abs().max()) - 1).bit_length(), 1)
+    hbuf, hlen = hc.ht_cleanup_enc(batch, h32, w32, htab, mmax)
+    ms_e = cuda_ms(torch, lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax), reps=3)
+    seg_bytes = int(hlen.sum())
+    hdata = hbuf[:, :int(hlen.max())].contiguous()
+    hlen32 = hlen.to(torch.int32)
+    dec, dec_wide = hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw)
+    ms_f = cuda_ms(torch, lambda: hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw),
+                   reps=3)
+    if bool(dec_wide.any()) or not torch.equal(dec, batch):
+        raise AssertionError("ht_cleanup_dec of the 4K batch is not the batch")
+    del dec, dec_wide
+    s_h, s_w = h32[idx].contiguous(), w32[idx].contiguous()
+    k_enc = hc.ht_cleanup_enc(s_batch, s_h, s_w, htab, mmax)
+    plain_ms_e, p_enc = cpu_ms(lambda: hc.ht_cleanup_enc_plain(
+        s_batch.cpu(), s_h.cpu(), s_w.cpu(), k_enc[0].shape[1]))
+    err_e = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
+                for a, b in zip(k_enc, p_enc))
+    s_data = k_enc[0][:, :max(int(k_enc[1].max()), 2)].contiguous()
+    s_len32 = k_enc[1].to(torch.int32)
+    k_dec = hc.ht_cleanup_dec(s_data, s_len32, s_h, s_w, htab, bh, bw)
+    plain_ms_f, p_dec = cpu_ms(lambda: hc.ht_cleanup_dec_plain(
+        s_data.cpu(), s_len32.cpu(), s_h.cpu(), s_w.cpu(), bh, bw))
+    err_f = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
+                for a, b in zip(k_dec, p_dec))
+    samples = int((h32.to(torch.int64) * w32).sum())  # inside the codeblocks
+    stats["ht_cleanup_enc"] = dict(
+        max_abs_err=err_e, ms=ms_e, plain_ms=plain_ms_e, library_ms=None,
+        bytes=samples * 4 + seg_bytes + n * 8, ops=samples,
+        shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B, "
+              f"MagSgn fields <= {mmax} bits", plain_shape=sample)
+    stats["ht_cleanup_dec"] = dict(
+        max_abs_err=err_f, ms=ms_f, plain_ms=plain_ms_f, library_ms=None,
+        bytes=seg_bytes + samples * 4 + n, ops=samples,
+        shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B",
+        plain_shape=sample)
+    del hbuf, hdata, batch
+
+    # K-g / K-h on the whole image, from the packed planes back to samples
+    inv_levels = [lv for c in range(NC) for lv in reversed(levels[5 * c:5 * c + 5])]
+
+    def idwt_all(fn, ps):
+        for c, p in enumerate(ps):
+            for (h, w, py, px) in reversed(levels[5 * c:5 * c + 5]):
+                fn(p, h, w, py, px)
+    kern = [p.clone() for p in coeffs]
+    plain = [p.clone() for p in coeffs]
+    idwt_all(tr.dwt53_inv_level, kern)
+    idwt_all(tr.dwt53_inv_level_plain, plain)
+    err = max(int((a - b).abs().max()) for a, b in zip(kern, plain))
+    scratch = [p.clone() for p in coeffs]  # timed in place, as K-b is
+    stats["dwt53_inv_level"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: idwt_all(tr.dwt53_inv_level, scratch)),
+        plain_ms=cuda_ms(torch, lambda: idwt_all(tr.dwt53_inv_level_plain, scratch)),
+        bytes=sum(8 * h * w for (h, w, _, _) in inv_levels),
+        ops=sum(9 * h * w for (h, w, _, _) in inv_levels), library_ms=None,
+        shape="5 levels x 3 comps to 2160x3840 (ms per image)")
+    rng8 = [(0, 255)] * NC
+    k_out = tr.rct_inv_dc_clip([p.clone() for p in kern], dcs, rng8, True)
+    p_out = tr.rct_inv_dc_clip_plain([p.clone() for p in kern], dcs, rng8, True)
+    err = max(int((a - b).abs().max()) for a, b in zip(k_out, p_out))
+    if any(not torch.equal(k_out[c].cpu(), torch.from_numpy(np.ascontiguousarray(arr[:, :, c])))
+           for c in range(NC)):
+        raise AssertionError("inverse chain of the 4K coefficients is not the image")
+    stats["rct_inv_dc_clip"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: tr.rct_inv_dc_clip(kern, dcs, rng8, True)),
+        plain_ms=cuda_ms(torch, lambda: tr.rct_inv_dc_clip_plain(kern, dcs, rng8, True)),
+        bytes=6 * 4 * W * H, ops=10 * W * H, library_ms=None, shape=f"3 x {H}x{W} int32")
+    del kern, plain, k_out, p_out, scratch
+
     for name, s in stats.items():
         bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = s["ops"] / INT32_OPS_PER_S * 1e3
@@ -263,7 +360,6 @@ def main() -> int:
         emit({"phase": "check", "kernel": name, "tolerance": 0, **s})
         if s["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from its plain version")
-    del sym, packed, s_sym, batch
 
     # ---- 5. whole slice at 256x256x3: kernel path == plain path
     small = natural_image(256, 256, 3)
@@ -279,6 +375,26 @@ def main() -> int:
           "gpu_ms": (t1 - t0) * 1e3, "plain_cpu_ms": (t2 - t1) * 1e3})
     if s_gpu != s_cpu or not ref_ok:
         raise AssertionError("256x256 card stream differs from the plain path or grok_tpu's")
+
+    ht6 = dict(num_resolutions=6, ht=True)
+    t0 = time.perf_counter()
+    h_gpu = gt.compress(gt.Image.from_array(small), gt.CompressParams(**ht6))
+    t1 = time.perf_counter()
+    d_gpu = gt.decompress(h_gpu)
+    t2 = time.perf_counter()
+    h_cpu = gt.compress(gt.Image.from_array(small), gt.CompressParams(**ht6), device="cpu")
+    d_cpu = gt.decompress(h_gpu, device="cpu")
+    t3 = time.perf_counter()
+    sha, ref_ok = digest_ok(h_gpu, "ht 256x256x3")
+    dec_same = all(np.array_equal(a.data, b.data) and np.array_equal(a.data, small[:, :, c])
+                   for c, (a, b) in enumerate(zip(d_gpu.components, d_cpu.components)))
+    emit({"phase": "slice_ht", "image": "256x256x3", "bytes": len(h_gpu),
+          "identical": h_gpu == h_cpu, "sha256": sha, "reference_digest": ref_ok,
+          "decode_equal": dec_same, "gpu_enc_ms": (t1 - t0) * 1e3,
+          "gpu_dec_ms": (t2 - t1) * 1e3, "plain_cpu_ms": (t3 - t2) * 1e3})
+    if h_gpu != h_cpu or not ref_ok or not dec_same:
+        raise AssertionError("256x256 HT card stream or decode differs from the plain path, "
+                             "grok_tpu's stream or the input")
 
     # ---- 6. full size, three requests
     gt.reset_launch_counts()
@@ -301,8 +417,47 @@ def main() -> int:
     counts = gt.launch_counts()
     emit({"phase": "e2e_launches", "image": f"{W}x{H}x{NC} lossless53", "requests": 3,
           "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if any(v <= 0 for v in counts.values()):
+    if any(counts[k] <= 0 for k in PART1_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
+
+    # ---- 7. HT at full size: three encodes, three decodes
+    gt.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    streams = []
+    for i in range(3):
+        stage = {}
+        img = gt.Image.from_array(arr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gt.compress(img, gt.CompressParams(num_resolutions=6, ht=True), stage_ms=stage)
+        torch.cuda.synchronize()
+        e2e = (time.perf_counter() - t0) * 1e3
+        sha, ref_ok = digest_ok(out, f"ht {H}x{W}x{NC}")
+        emit({"phase": "e2e_ht", "op": "encode", "request": i, "e2e_ms": e2e,
+              "mp_per_s": W * H / 1e6 / (e2e / 1e3), "bytes": len(out), "sha256": sha,
+              "reference_digest": ref_ok, "stage_ms": stage})
+        if not ref_ok:
+            raise AssertionError(f"HT request {i}: the stream is not grok_tpu's ({len(out)} B)")
+        streams.append(out)
+    for i, stream in enumerate(streams):
+        stage = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = gt.decompress(stream, stage_ms=stage)
+        torch.cuda.synchronize()
+        e2e = (time.perf_counter() - t0) * 1e3
+        exact = all(np.array_equal(c.data, arr[:, :, k]) for k, c in enumerate(back.components))
+        emit({"phase": "e2e_ht", "op": "decode", "request": i, "e2e_ms": e2e,
+              "mp_per_s": W * H / 1e6 / (e2e / 1e3), "exact": exact, "stage_ms": stage})
+        if not exact:
+            raise AssertionError(f"HT decode {i}: not the input")
+    ht_counts = gt.launch_counts()
+    emit({"phase": "e2e_ht_launches", "image": f"{W}x{H}x{NC} ht_lossless", "requests": 3,
+          "launches": ht_counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if any(ht_counts[k] <= 0 for k in HT_KERNELS):
+        raise AssertionError(f"a kernel of the HT path never launched: {ht_counts}")
+    for k in HT_KERNELS[2:]:
+        counts[k] = ht_counts[k]
 
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",

@@ -1,34 +1,42 @@
 """grok_tpu_torch — the PyTorch / CUDA port of grok_tpu for NVIDIA Hopper.
 
-This slice ports the Part-1 lossless encode: DC shift + RCT + 5/3 DWT,
-codeblock gather, EBCOT context modelling and MQ coding on the GPU in
-hand-written CUDA kernels (``csrc/``), T2 and markers on the host. The
-package imports torch and numpy only; grok_tpu is its reference in the
-tests, never a dependency.
+Two slices are ported. The Part-1 lossless encode: DC shift + RCT + 5/3
+DWT, codeblock gather, EBCOT context modelling and MQ coding. The HTJ2K
+lossless encode and decode (``ht=True``): the same transform and gather,
+the HT cleanup coder and decoder, codeblock scatter and the inverse 5/3 +
+RCT. Device work runs in hand-written CUDA kernels (``csrc/``); T2 and
+markers run on the host. The package imports torch and numpy only;
+grok_tpu is its reference in the tests, never a dependency.
 
     import grok_tpu_torch as gt
-    stream = gt.compress(gt.Image.from_array(arr), gt.CompressParams())
+    stream = gt.compress(gt.Image.from_array(arr), gt.CompressParams(ht=True))
+    image = gt.decompress(stream)
 
-``compress`` runs on the current CUDA device; ``device="cpu"`` runs the
-kernels' plain torch versions instead (what the CPU tests do).
+``compress`` and ``decompress`` run on the current CUDA device;
+``device="cpu"`` runs the kernels' plain versions instead (what the CPU
+tests do).
 """
 
 from .codestream.compress import compress
+from .codestream.decompress import decompress
 from .core.errors import ParameterError, UnsupportedFeatureError
 from .core.image import Component, Image
-from .core.params import ColorSpace, CompressParams, ProgressionOrder, QuantStyle
+from .core.params import (ColorSpace, CompressParams, DecompressParams, ProgressionOrder,
+                          QuantStyle)
 from .kernels import launch_counts, reset_launch_counts
 
 __all__ = [
     "ColorSpace",
     "Component",
     "CompressParams",
+    "DecompressParams",
     "Image",
     "ParameterError",
     "ProgressionOrder",
     "QuantStyle",
     "UnsupportedFeatureError",
     "compress",
+    "decompress",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -1,6 +1,7 @@
 """Whole-image codestream encoder; counterpart of
 grok_tpu/codestream/compress.py (build_siz, build_tcp, write_main_header,
-encode_tile_to_blob, compress) for the Part-1 lossless slice.
+encode_tile_to_blob, compress) for the lossless slices: Part-1 (MQ) and
+HTJ2K cleanup-only (``ht=True``).
 
 Host-side orchestration: the main header, one TileProcessor per tile
 (each drives the device work of its tile), tiles one after another.
@@ -13,7 +14,7 @@ import torch
 
 from ..core.errors import ParameterError, UnsupportedFeatureError
 from ..core.image import Image
-from ..core.params import CompressParams, QuantStyle
+from ..core.params import CBLK_HT, CompressParams, QuantStyle
 from ..core.rect import ceil_div
 from ..core.timing import StageClock
 from ..tile.tile_processor import TileProcessor
@@ -23,9 +24,9 @@ from .structs import Siz, SizComponent, Tcp, TccpStyle
 
 
 def check_supported(params: CompressParams) -> None:
-    """Refuse every option outside the Part-1 lossless slice by name."""
+    """Refuse every option outside the lossless slices by name."""
     off = {
-        "ht": params.ht,
+        "ht_refine (HT refinement passes)": params.ht and params.ht_refine,
         "irreversible": params.irreversible,
         "mct_matrix": params.mct_matrix is not None,
         "custom_mct": params.custom_mct is not None,
@@ -50,7 +51,7 @@ def check_supported(params: CompressParams) -> None:
     bad = [k for k, v in off.items() if v]
     if bad:
         raise UnsupportedFeatureError(
-            f"outside the ported Part-1 lossless slice: {', '.join(bad)}")
+            f"outside the ported lossless slices: {', '.join(bad)}")
 
 
 def build_siz(image: Image, params: CompressParams) -> Siz:
@@ -87,7 +88,7 @@ def build_tcp(image: Image, params: CompressParams) -> Tcp:
             num_resolutions=params.num_resolutions,
             cblk_w_exp=params.cblk_width.bit_length() - 1,
             cblk_h_exp=params.cblk_height.bit_length() - 1,
-            cblk_style=params.cblk_style,
+            cblk_style=params.cblk_style | (CBLK_HT if params.ht else 0),
             guard_bits=params.guard_bits,
         )
         prec = image.components[c].prec
@@ -99,10 +100,23 @@ def build_tcp(image: Image, params: CompressParams) -> Tcp:
 
 
 def write_main_header(siz: Siz, tcp: Tcp, params: CompressParams) -> bytearray:
-    """Main header SOC, SIZ, COD, QCD, QCCs, COM."""
+    """Main header SOC, SIZ, CAP (HT), COD, QCD, QCCs, COM."""
     out = bytearray()
     out += mk._u16(mk.SOC)
     out += mk.write_siz(siz)
+    if params.ht:
+        # CAP: Pcap bit for Part 15, Ccap15 from MAGB (T.814 A.3); the
+        # reversible slice leaves the irreversible bit clear
+        magb = max(max(t.step_exps) + t.guard_bits - 1 for t in tcp.tccps)
+        if magb <= 8:
+            bp = 0
+        elif magb < 28:
+            bp = magb - 8
+        elif magb < 48:
+            bp = 13 + (magb >> 2)
+        else:
+            bp = 31
+        out += mk.write_cap(0x00020000, [bp])
     out += mk.write_cod(tcp)
     out += mk.write_qcd(tcp)
     base = tcp.tccps[0]
@@ -136,13 +150,13 @@ def encode_tile_to_blob(siz: Siz, tcp: Tcp, ti: int, comp_arrays: list[np.ndarra
     return mk.write_sot(ti, psot, 0, 1) + mk._u16(mk.SOD) + body
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, entry: str = "compress") -> torch.device:
     """``device`` or, when None, the current CUDA device; never a silent
     CPU fallback."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "grok_tpu_torch.compress runs on a CUDA device and none is "
+                f"grok_tpu_torch.{entry} runs on a CUDA device and none is "
                 "available; pass device='cpu' to run the plain versions")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
@@ -163,6 +177,8 @@ def compress(image: Image, params: CompressParams | None = None, device=None,
     image.finalize()
     siz = build_siz(image, params)
     tcp = build_tcp(image, params)
+    if params.ht:
+        siz.rsiz |= 0x4000  # Part-15 capabilities in Rsiz (see CAP)
     for ti in range(siz.num_tiles):
         if siz.tile_bounds(ti).empty():
             raise ParameterError(f"tile {ti} empty")

@@ -1,0 +1,150 @@
+"""Whole-image codestream decoder for the HTJ2K lossless slice; counterpart
+of grok_tpu/codestream/decompress.py (Decoder: main header, tile-part walk,
+_paste_tile :366-399; decompress :403).
+
+Host-side orchestration: the main header, the tile-part index and each
+tile-part header are parsed here; one TileProcessor per tile drives its
+device work, tiles one after another. Streams outside the slice (Part-1 MQ
+codeblocks, 9/7, precincts, SOP/EPH, ROI, POC, packed headers, length
+markers, Part-2 MCT) and non-default DecompressParams are refused by name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..core.errors import CodestreamError, InvalidMarkerError, UnsupportedFeatureError
+from ..core.image import Component, Image
+from ..core.params import CBLK_HT, ColorSpace, DecompressParams
+from ..core.rect import ceil_div
+from ..core.timing import StageClock
+from ..tile.tile_processor import TileProcessor
+from . import markers as mk
+from .compress import resolve_device
+from .structs import HeaderInfo, Tcp
+
+
+def check_params(params: DecompressParams) -> None:
+    """Refuse every non-default DecompressParams field by name."""
+    bad = [f.name for f in dataclasses.fields(DecompressParams)
+           if getattr(params, f.name) != f.default]
+    if bad:
+        raise UnsupportedFeatureError(
+            f"outside the ported decode slice: DecompressParams {', '.join(bad)}")
+
+
+def check_decodable(tcp: Tcp) -> None:
+    """Refuse coding styles outside the HTJ2K lossless slice by name."""
+    off = {
+        "Part-1 MQ decode": any(not t.cblk_style & CBLK_HT for t in tcp.tccps),
+        "mixed HT / Part-1 codeblocks": any(t.cblk_style & 0x80 for t in tcp.tccps),
+        "9/7 irreversible transform": any(t.irreversible for t in tcp.tccps),
+        "precinct sizes": any(t.precinct_exps is not None for t in tcp.tccps),
+        "SOP/EPH markers": bool(tcp.csty & 0x06),
+        f"MCT {tcp.mct}": tcp.mct not in (0, 1),
+    }
+    bad = [k for k, v in off.items() if v]
+    if bad:
+        raise UnsupportedFeatureError(f"outside the ported decode slice: {', '.join(bad)}")
+
+
+def index_tile_parts(data, first_sot: int) -> dict[int, list[tuple[int, int, int]]]:
+    """{tile: [(tp_index, sot_offset, body_end)]} by walking the SOT
+    markers (the reference's index_by_scan, without resynchronisation)."""
+    spans: dict[int, list[tuple[int, int, int]]] = {}
+    c = mk.Cursor(data, first_sot)
+    while c.remaining() >= 2:
+        m = c.u16()
+        if m == mk.EOC:
+            break
+        if m != mk.SOT:
+            raise CodestreamError(f"expected SOT, found 0x{m:04X}")
+        sot = c.pos - 2
+        c.u16()
+        ti, psot, tpi, _ = mk.read_sot(c)
+        end = min(sot + psot, len(data)) if psot else len(data)
+        spans.setdefault(ti, []).append((tpi, sot, end))
+        c.pos = end
+    return spans
+
+
+def read_tile_headers(data, header: HeaderInfo,
+                      spans: list[tuple[int, int, int]]) -> tuple[Tcp, bytes]:
+    """A tile's coding parameters (the main header's, updated by its
+    tile-part headers) and its body, the tile-parts' data in order."""
+    tcp = header.default_tcp.copy()
+    bodies = []
+    for _tpi, sot, end in sorted(spans):
+        c = mk.Cursor(data, sot + 4)
+        mk.read_sot(c)
+        while True:
+            m = c.u16()
+            if m == mk.SOD:
+                break
+            if m < 0xFF00:
+                raise InvalidMarkerError("bad marker in tile-part header")
+            ln = c.u16()
+            mk.read_tile_marker(m, mk.Cursor(c.data, c.pos, c.pos + ln - 2), tcp,
+                                header.siz.num_comps)
+            c.pos += ln - 2
+        bodies.append(bytes(data[c.pos:end]))
+    return tcp, b"".join(bodies)
+
+
+def _make_image(header: HeaderInfo) -> Image:
+    siz = header.siz
+    img = Image(siz.x0, siz.y0, siz.x1, siz.y1, color_space=ColorSpace.UNKNOWN)
+    img.components = [Component(dx=sc.dx, dy=sc.dy, prec=sc.prec, signed=sc.signed)
+                      for sc in siz.comps]
+    img.finalize()
+    for c in img.components:
+        c.data = np.zeros((c.h, c.w), dtype=np.int32)
+    return img
+
+
+def _paste_tile(img: Image, header: HeaderInfo, tile_index: int, arrays) -> None:
+    tb = header.siz.tile_bounds(tile_index)
+    for c, sc, a in zip(img.components, header.siz.comps, arrays):
+        x0 = ceil_div(tb.x0, sc.dx) - c.x0
+        y0 = ceil_div(tb.y0, sc.dy) - c.y0
+        sy0, sx0 = max(0, -y0), max(0, -x0)
+        dy0, dx0 = max(0, y0), max(0, x0)
+        h = min(a.shape[0] - sy0, c.h - dy0)
+        w = min(a.shape[1] - sx0, c.w - dx0)
+        if h > 0 and w > 0:
+            c.data[dy0:dy0 + h, dx0:dx0 + w] = a[sy0:sy0 + h, sx0:sx0 + w]
+
+
+def decompress(data, params: DecompressParams | None = None, device=None,
+               stage_ms: dict[str, float] | None = None) -> Image:
+    """Decode a raw .j2k HTJ2K codestream into an Image on ``device``
+    (default: the current CUDA device). With ``stage_ms`` (a dict) the
+    device is synchronised between stages and their milliseconds are
+    added there: markers, t2, upload, t1_ht_dec, scatter, inverse, to_host."""
+    check_params(params or DecompressParams())
+    dev = resolve_device(device, "decompress")
+    clock = StageClock(dev, stage_ms)
+    data = memoryview(bytes(data))
+    header, first_sot = mk.parse_main_header(data)
+    check_decodable(header.default_tcp)
+    siz = header.siz
+    spans = index_tile_parts(data, first_sot)
+    img = _make_image(header)
+    if len(spans) < siz.num_tiles:
+        # tiles without data hold the value of all-zero coefficients
+        for c in img.components:
+            c.data.fill(0 if c.signed else 1 << (c.prec - 1))
+    clock.mark("markers")
+    for ti in range(siz.num_tiles):
+        if ti not in spans:
+            continue
+        tcp, body = read_tile_headers(data, header, spans[ti])
+        check_decodable(tcp)
+        clock.mark("markers")
+        planes = TileProcessor(siz, tcp, ti, dev).decompress(body, clock)
+        arrays = [p.cpu().numpy() for p in planes]
+        clock.mark("to_host")
+        _paste_tile(img, header, ti, arrays)
+    return img

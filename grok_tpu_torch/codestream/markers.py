@@ -1,13 +1,15 @@
-"""J2K marker segment writers (T.800 Annex A); counterpart of the writer
-half of grok_tpu/codestream/markers.py: SOC, SIZ, COD, QCD/QCC, COM, SOT,
-SOD and EOC."""
+"""J2K marker segments (T.800 Annex A; T.814 CAP); counterpart of
+grok_tpu/codestream/markers.py for SOC, SIZ, CAP, COD/COC, QCD/QCC, COM,
+SOT, SOD and EOC: the writers, and the readers of the main and tile-part
+headers. Markers outside the ported slices are refused by name."""
 
 from __future__ import annotations
 
 import struct
 
-from ..core.params import QuantStyle
-from .structs import Siz, Tcp, TccpStyle
+from ..core.errors import CodestreamError, InvalidMarkerError, UnsupportedFeatureError
+from ..core.params import ProgressionOrder, QuantStyle
+from .structs import HeaderInfo, Siz, SizComponent, Tcp, TccpStyle
 
 SOC = 0xFF4F
 SOT = 0xFF90
@@ -18,6 +20,11 @@ COD = 0xFF52
 QCD = 0xFF5C
 QCC = 0xFF5D
 COM = 0xFF64
+CAP = 0xFF50
+COC = 0xFF53
+# markers the decoder refuses (outside the ported slices)
+REFUSED = {0xFF5F: "POC", 0xFF5E: "RGN", 0xFF60: "PPM", 0xFF61: "PPT", 0xFF58: "PLT",
+           0xFF57: "PLM", 0xFF55: "TLM", 0xFF74: "MCT", 0xFF75: "MCC", 0xFF77: "MCO"}
 
 
 def _u8(b: int) -> bytes:
@@ -95,3 +102,190 @@ def write_com(text: bytes, is_text: bool = True) -> bytes:
 def write_sot(tile_index: int, psot: int, tp_index: int, num_tps: int) -> bytes:
     return segment(SOT, _u16(tile_index) + _u32(psot) + _u8(tp_index)
                    + _u8(num_tps))
+
+
+def write_cap(pcap: int, ccaps: list[int]) -> bytes:
+    return segment(CAP, _u32(pcap) + b"".join(_u16(cc) for cc in ccaps))
+
+
+# ================================================================ readers
+class Cursor:
+    """Bounded big-endian byte reader for marker payloads."""
+
+    def __init__(self, data, pos: int = 0, end: int | None = None):
+        self.data = data
+        self.pos = pos
+        self.end = len(data) if end is None else end
+
+    def remaining(self) -> int:
+        return self.end - self.pos
+
+    def u8(self) -> int:
+        if self.pos + 1 > self.end:
+            raise CodestreamError("truncated marker payload")
+        v = self.data[self.pos]
+        self.pos += 1
+        return v
+
+    def u16(self) -> int:
+        if self.pos + 2 > self.end:
+            raise CodestreamError("truncated marker payload")
+        v = (self.data[self.pos] << 8) | self.data[self.pos + 1]
+        self.pos += 2
+        return v
+
+    def u32(self) -> int:
+        return (self.u16() << 16) | self.u16()
+
+
+def read_siz(c: Cursor) -> Siz:
+    siz = Siz()
+    siz.rsiz = c.u16()
+    siz.x1, siz.y1, siz.x0, siz.y0 = c.u32(), c.u32(), c.u32(), c.u32()
+    siz.tile_w, siz.tile_h, siz.tile_x0, siz.tile_y0 = c.u32(), c.u32(), c.u32(), c.u32()
+    ncomp = c.u16()
+    if ncomp == 0 or ncomp > 16384:
+        raise CodestreamError(f"SIZ: bad component count {ncomp}")
+    if siz.x1 <= siz.x0 or siz.y1 <= siz.y0:
+        raise CodestreamError("SIZ: empty image area")
+    if siz.tile_w == 0 or siz.tile_h == 0:
+        raise CodestreamError("SIZ: zero tile size")
+    if siz.tile_x0 > siz.x0 or siz.tile_y0 > siz.y0:
+        raise CodestreamError("SIZ: tile origin beyond image origin")
+    if siz.num_tiles > 65535:
+        raise CodestreamError(f"SIZ: tile grid {siz.num_tiles_x}x{siz.num_tiles_y} "
+                              "exceeds 65535 tiles")
+    for _ in range(ncomp):
+        ssiz, dx, dy = c.u8(), c.u8(), c.u8()
+        if dx == 0 or dy == 0:
+            raise CodestreamError("SIZ: zero subsampling")
+        siz.comps.append(SizComponent(dx=dx, dy=dy, prec=(ssiz & 0x7F) + 1,
+                                      signed=bool(ssiz & 0x80)))
+    return siz
+
+
+def _read_spcod(c: Cursor, tccp: TccpStyle, with_precincts: bool) -> None:
+    tccp.num_resolutions = c.u8() + 1
+    if tccp.num_resolutions > 33:
+        raise CodestreamError("COD: too many resolutions")
+    tccp.cblk_w_exp = c.u8() + 2
+    tccp.cblk_h_exp = c.u8() + 2
+    if not (2 <= tccp.cblk_w_exp <= 10) or not (2 <= tccp.cblk_h_exp <= 10):
+        raise CodestreamError("COD: bad codeblock exponent")
+    if tccp.cblk_w_exp + tccp.cblk_h_exp > 12:
+        raise CodestreamError("COD: codeblock area > 4096")
+    tccp.cblk_style = c.u8()
+    tccp.irreversible = c.u8() == 0
+    tccp.precinct_exps = None
+    if with_precincts:
+        tccp.precinct_exps = []
+        for _ in range(tccp.num_resolutions):
+            v = c.u8()
+            tccp.precinct_exps.append((v & 0x0F, v >> 4))
+
+
+def read_cod(c: Cursor, tcp: Tcp, num_comps: int) -> None:
+    tcp.csty = c.u8()
+    tcp.progression = ProgressionOrder(c.u8())
+    tcp.num_layers = c.u16()
+    if tcp.num_layers == 0:
+        raise CodestreamError("COD: zero layers")
+    tcp.mct = c.u8()
+    base = TccpStyle()
+    _read_spcod(c, base, bool(tcp.csty & 0x01))
+    tcp.tccps = [base.copy() for _ in range(num_comps)]
+
+
+def read_coc(c: Cursor, tcp: Tcp, num_comps: int) -> None:
+    comp = c.u8() if num_comps <= 256 else c.u16()
+    if comp >= num_comps:
+        raise CodestreamError("COC: bad component index")
+    _read_spcod(c, tcp.tccps[comp], bool(c.u8() & 0x01))
+
+
+def _read_sqcd(c: Cursor, tccp: TccpStyle) -> None:
+    sqcd = c.u8()
+    tccp.quant_style = sqcd & 0x1F
+    tccp.guard_bits = sqcd >> 5
+    if tccp.quant_style != QuantStyle.NO_QUANT:
+        raise UnsupportedFeatureError(
+            f"outside the ported slices: quantization style {tccp.quant_style}")
+    tccp.step_exps = [c.u8() >> 3 for _ in range(c.remaining())]
+
+
+def read_qcd(c: Cursor, tcp: Tcp) -> None:
+    base = tcp.tccps[0]
+    _read_sqcd(c, base)
+    for t in tcp.tccps[1:]:
+        t.quant_style, t.guard_bits = base.quant_style, base.guard_bits
+        t.step_exps = list(base.step_exps)
+
+
+def read_qcc(c: Cursor, tcp: Tcp, num_comps: int) -> None:
+    comp = c.u8() if num_comps <= 256 else c.u16()
+    if comp >= num_comps:
+        raise CodestreamError("QCC: bad component index")
+    _read_sqcd(c, tcp.tccps[comp])
+
+
+def read_cap(c: Cursor) -> tuple[int, list[int]]:
+    pcap = c.u32()
+    return pcap, [c.u16() for _ in range(c.remaining() // 2)]
+
+
+def read_sot(c: Cursor) -> tuple[int, int, int, int]:
+    return c.u16(), c.u32(), c.u8(), c.u8()
+
+
+def refuse(m: int) -> None:
+    """Raise for a marker outside the ported slices."""
+    if m in REFUSED:
+        raise UnsupportedFeatureError(f"outside the ported slices: {REFUSED[m]} marker")
+
+
+def read_tile_marker(m: int, sub: Cursor, tcp: Tcp, num_comps: int) -> None:
+    """COD/COC/QCD/QCC of a main or tile-part header into ``tcp``."""
+    refuse(m)
+    if m == COD:
+        read_cod(sub, tcp, num_comps)
+    elif m == COC:
+        read_coc(sub, tcp, num_comps)
+    elif m == QCD:
+        read_qcd(sub, tcp)
+    elif m == QCC:
+        read_qcc(sub, tcp, num_comps)
+
+
+def parse_main_header(data) -> tuple[HeaderInfo, int]:
+    """Parse SOC..first SOT. Returns (HeaderInfo, offset of the first SOT).
+    COM is skipped; CRG, PRF and CPF are skipped as the reference does."""
+    c = Cursor(data)
+    if c.u16() != SOC:
+        raise InvalidMarkerError("no SOC marker")
+    hi = HeaderInfo()
+    siz_seen = False
+    while True:
+        m = c.u16()
+        if m == SOT:
+            if not siz_seen:
+                raise CodestreamError("SOT before SIZ")
+            return hi, c.pos - 2
+        if m == EOC:
+            raise CodestreamError("EOC before any tile")
+        if m < 0xFF00:
+            raise InvalidMarkerError(f"bad marker 0x{m:04X} in main header")
+        ln = c.u16()
+        if ln < 2:
+            raise CodestreamError("bad marker length")
+        sub = Cursor(c.data, c.pos, c.pos + ln - 2)
+        if m == SIZ:
+            hi.siz = read_siz(sub)
+            hi.default_tcp.tccps = [TccpStyle() for _ in hi.siz.comps]
+            siz_seen = True
+        elif m == CAP:
+            hi.cap = read_cap(sub)
+        elif m in (COD, COC, QCD, QCC) and not siz_seen:
+            raise CodestreamError("coding style before SIZ")
+        elif m != COM:
+            read_tile_marker(m, sub, hi.default_tcp, hi.siz.num_comps)
+        c.pos += ln - 2

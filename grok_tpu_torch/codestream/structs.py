@@ -1,9 +1,9 @@
-"""Codestream state for encoding: SIZ geometry and coding styles
-(counterpart of grok_tpu/codestream/structs.py, encode side)."""
+"""Codestream state: SIZ geometry, coding styles and the parsed main
+header (counterpart of grok_tpu/codestream/structs.py)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from ..core.params import ProgressionOrder
 from ..core.rect import Rect, ceil_div
@@ -72,10 +72,19 @@ class TccpStyle:
     cblk_style: int = 0
     guard_bits: int = 2
     step_exps: list[int] = field(default_factory=list)  # per band (reversible)
+    # as read from a stream; the decoder refuses what the slices lack
+    irreversible: bool = False
+    precinct_exps: list[tuple[int, int]] | None = None
+    quant_style: int = 0
 
     def precinct_exp(self, res: int) -> tuple[int, int]:
-        """Maximal precincts: this slice signals no precinct sizes."""
+        """Maximal precincts: these slices signal no precinct sizes."""
         return (15, 15)
+
+    def copy(self) -> "TccpStyle":
+        return replace(self, step_exps=list(self.step_exps),
+                       precinct_exps=None if self.precinct_exps is None
+                       else list(self.precinct_exps))
 
 
 @dataclass
@@ -87,3 +96,15 @@ class Tcp:
     num_layers: int = 1
     mct: int = 0  # 0: none, 1: RCT
     tccps: list[TccpStyle] = field(default_factory=list)
+
+    def copy(self) -> "Tcp":
+        return replace(self, tccps=[t.copy() for t in self.tccps])
+
+
+@dataclass
+class HeaderInfo:
+    """What the decoder keeps of the main header."""
+
+    siz: Siz = field(default_factory=Siz)
+    default_tcp: Tcp = field(default_factory=Tcp)
+    cap: tuple[int, list[int]] | None = None  # (Pcap, [Ccap...])

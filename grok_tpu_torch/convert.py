@@ -2,7 +2,8 @@
 
 A codec has no trained weights; what must agree between grok_tpu and the
 port is its tables (EBCOT zero/sign-coding contexts, the MQ state
-machine, the 5/3 band synthesis norms) and its parameters. These helpers
+machine, the 5/3 band synthesis norms, the HT coder's CxtVLC, MEL and
+u-code tables) and its parameters. These helpers
 take the reference's values as plain numpy arrays and dicts, so the port
 never imports the reference to use them.
 """
@@ -17,8 +18,12 @@ import torch
 from .codestream.quantizer import band_norm
 from .core.errors import ParameterError
 from .core.params import CompressParams, ProgressionChange, ProgressionOrder, QuantStyle
+from .t1 import ht
 from .t1.ebcot import SC_CTX, SC_XOR, ZC_LUT, ctx_table
+from .t1.ht_cuda import pack_ht_tables
 from .t1.mq import NLPS, NMPS, QE, SWITCH, mq_table
+
+HT_TABLES = ("MEL_EXP", "ENC_TBL", "DEC_TBL", "_U_PRE", "_U_PRE_LEN", "_U_SUF", "_U_SUF_LEN")
 
 NORM_LEVELS = 33
 
@@ -26,8 +31,11 @@ NORM_LEVELS = 33
 def tables_from_numpy(d: dict, device=None) -> dict[str, torch.Tensor]:
     """The port's table tensors on ``device`` from numpy arrays named as in
     grok_tpu: _ZC_LUT [4, 45], _SC_CTX [9], _SC_XOR [9] (t1/ebcot_np.py),
-    QE, NMPS, NLPS, SWITCH [47] (t1/mq_np.py) and band_norms [4, 33], the
-    reversible synthesis norm of each (orient, level 1..33)."""
+    QE, NMPS, NLPS, SWITCH [47] (t1/mq_np.py), band_norms [4, 33], the
+    reversible synthesis norm of each (orient, level 1..33), and the HT
+    tables of t1/ht.py (HT_TABLES: MEL_EXP [13], ENC_TBL [2, 2048],
+    DEC_TBL [2][8][128] entries or None, the u-code tables [33]), which
+    give "ht" in the HT kernels' layout (t1/ht_cuda.pack_ht_tables)."""
     t = {k: torch.from_numpy(np.ascontiguousarray(d[k]).astype(np.int64))
          for k in ("_ZC_LUT", "_SC_CTX", "_SC_XOR", "QE", "NMPS", "NLPS", "SWITCH")}
     if t["_ZC_LUT"].shape != (4, 45) or any(t[k].shape != (47,)
@@ -40,6 +48,7 @@ def tables_from_numpy(d: dict, device=None) -> dict[str, torch.Tensor]:
         "ctx": ctx_table(t["_ZC_LUT"], t["_SC_CTX"], t["_SC_XOR"]).to(device),
         "mq": mq_table(t["QE"], t["NMPS"], t["NLPS"], t["SWITCH"]).to(device),
         "band_norms": torch.from_numpy(norms).to(device),
+        "ht": pack_ht_tables(*(d[k] for k in HT_TABLES)).to(device),
     }
 
 
@@ -51,6 +60,7 @@ def builtin_tables(device=None) -> dict[str, torch.Tensor]:
         "SWITCH": SWITCH.numpy(),
         "band_norms": np.array([[band_norm(o, lv) for lv in range(1, NORM_LEVELS + 1)]
                                 for o in range(4)], dtype=np.float64),
+        **{k: getattr(ht, k) for k in HT_TABLES},
     }, device)
 
 

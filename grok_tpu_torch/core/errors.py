@@ -1,5 +1,4 @@
-"""Typed codec exceptions (counterpart of grok_tpu/core/errors.py, the
-encoder's share)."""
+"""Typed codec exceptions (counterpart of grok_tpu/core/errors.py)."""
 
 
 class GrokTpuError(Exception):
@@ -12,3 +11,15 @@ class UnsupportedFeatureError(GrokTpuError):
 
 class ParameterError(GrokTpuError):
     """Invalid user-supplied coding parameters."""
+
+
+class CodestreamError(GrokTpuError):
+    """Malformed or truncated codestream."""
+
+
+class InvalidMarkerError(CodestreamError):
+    """Unexpected or unknown marker where a specific one is required."""
+
+
+class CorruptPacketError(CodestreamError):
+    """Packet header or body inconsistent with the coding parameters."""

@@ -1,9 +1,10 @@
-"""Coding parameters (counterpart of grok_tpu/core/params.py, encode side).
+"""Coding parameters (counterpart of grok_tpu/core/params.py).
 
-Field names and defaults are those of grok_tpu's CompressParams, so a dict
-of its fields carries over unchanged (convert.params_from_dict). Fields
-outside the Part-1 lossless slice are kept so that the compressor can
-refuse them by name (codestream/compress.py:check_supported).
+Field names and defaults are those of grok_tpu's CompressParams and
+DecompressParams, so a dict of their fields carries over unchanged
+(convert.params_from_dict). Fields outside the ported slices are kept so
+that the codec can refuse them by name (codestream/compress.py
+check_supported, codestream/decompress.py).
 """
 
 from __future__ import annotations
@@ -12,6 +13,10 @@ import enum
 from dataclasses import dataclass, field
 
 from .errors import ParameterError
+
+
+# Codeblock style bit of the HT block coder (T.814), COD SPcod
+CBLK_HT = 0x40
 
 
 class ProgressionOrder(enum.IntEnum):
@@ -133,3 +138,21 @@ class CompressParams:
             raise ParameterError("codeblock area must be <= 4096")
         if self.num_layers < 1 or self.num_layers > 65535:
             raise ParameterError("num_layers out of range")
+
+
+@dataclass
+class DecompressParams:
+    """Decoder configuration; same fields and defaults as grok_tpu's. The
+    port decodes with the defaults only (codestream/decompress.py refuses
+    any other value by name)."""
+
+    reduce: int = 0  # discard this many highest resolution levels
+    max_layers: int = 0  # 0 = all quality layers
+    window: tuple[int, int, int, int] | None = None  # (x0, y0, x1, y1) canvas coords
+    tile_index: int | None = None  # decode a single tile
+    force_rgb: bool = False
+    upsample: bool = False
+    io_buffer_mb: int = 64
+    tile_cache_all: bool = False
+    num_threads: int = 0
+    max_pixels: int | None = None

@@ -68,6 +68,19 @@ KERNELS: dict[str, Kernel] = {
                "grok_tpu/t1/ebcot_pallas.py:399 (host packer of K1)",
                (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I64, _I32, _I32,
                 _I64, _I32, _P)),
+        Kernel("ht_cleanup_enc", "ht_enc.cu",
+               "grok_tpu/t1/ht_jax.py:217 (K3: _encode_device, with the host "
+               "_stuff_host :503 and _compact :560)",
+               (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P)),
+        Kernel("ht_cleanup_dec", "ht_dec.cu",
+               "grok_tpu/t1/ht_jax_dec.py:233 (K4: _decode_device)",
+               (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P)),
+        Kernel("dwt53_inv_level", "dwt53_inv.cu",
+               "grok_tpu/ops/jax_pipeline.py:191 (K2-inv: dwt.inverse / inv53_axis)",
+               (_P, _P, _I32, _I32, _I32, _I32, _I32, _P)),
+        Kernel("rct_inv_dc_clip", "rct_inv.cu",
+               "grok_tpu/ops/jax_pipeline.py:198-220 (K2-inv: rct_inverse, DC shift, clip)",
+               (_P, _P, _P, _I64) + (_I32,) * 10 + (_P,)),
     )
 }
 

@@ -86,7 +86,8 @@ class T1EncodeResult:
     numbps: torch.Tensor  # [N] int64 coded magnitude bit planes
     npasses: torch.Tensor  # [N] int64 coding passes (3*numbps - 2, or 0)
     pass_rates: torch.Tensor  # [N, max_passes] int64 cumulative byte bounds
-    pass_dist: torch.Tensor  # [N, max_passes] float64 distortion decrease
+    # [N, max_passes] float64 distortion decrease; None when not asked for
+    pass_dist: torch.Tensor | None
     # (buffer [N, max_bytes + 2], column of byte 0): data == buf[:, 1:]
     raw_data: tuple | None = None
 

@@ -406,14 +406,17 @@ def pass_dist_from_records(sym: torch.Tensor, coeffs: torch.Tensor,
 
 # ==================================================== public entry point
 def encode_cblks(coeffs: torch.Tensor, heights, widths, orients,
-                 styles=None, clock: StageClock | None = None) -> T1EncodeResult:
+                 styles=None, clock: StageClock | None = None,
+                 want_dist: bool = True) -> T1EncodeResult:
     """Encode a batch of codeblocks on the device holding ``coeffs``.
 
     coeffs: [N, H, W] int32 quantized coefficients (signed);
     heights/widths/orients/styles: [N] per-lane extents, band orientation
     codes and codeblock styles. The result's tensors stay on that device.
     ``clock`` (optional) charges the scan, the packer and the distortion
-    sums to stages t1_symbols, t1_pack and t1_dist."""
+    sums to stages t1_symbols, t1_pack and t1_dist. Without ``want_dist``
+    the per-pass distortions, which only a layer allocation reads, are not
+    computed (pass_dist None)."""
     clock = clock or StageClock(coeffs.device, None)
     dev = coeffs.device
     coeffs = coeffs.to(torch.int32).contiguous()
@@ -432,7 +435,8 @@ def encode_cblks(coeffs: torch.Tensor, heights, widths, orients,
             lengths=torch.zeros(n, dtype=torch.int64, device=dev),
             numbps=numbps, npasses=npasses,
             pass_rates=torch.zeros((n, 1), dtype=torch.int64, device=dev),
-            pass_dist=torch.zeros((n, 1), dtype=torch.float64, device=dev))
+            pass_dist=torch.zeros((n, 1), dtype=torch.float64, device=dev) if want_dist
+            else None)
     pmaxc = _round_up(pmax, 4)
     lanes = torch.stack([numbps, heights, widths, orients, sty]).to(torch.int32).contiguous()
     tabs = device_tables(dev)
@@ -441,8 +445,10 @@ def encode_cblks(coeffs: torch.Tensor, heights, widths, orients,
     buf, lengths, rates = mq_pack(sym, lanes[0].contiguous(), lanes[4].contiguous(),
                                   tabs["mq"], h, w, pmax)
     clock.mark("t1_pack")
-    dist = pass_dist_from_records(sym, coeffs, numbps, pmax)
-    clock.mark("t1_dist")
+    dist = None
+    if want_dist:
+        dist = pass_dist_from_records(sym, coeffs, numbps, pmax)
+        clock.mark("t1_dist")
     return T1EncodeResult(data=buf[:, 1:], raw_data=(buf, 1), lengths=lengths,
                           numbps=numbps, npasses=npasses, pass_rates=rates,
                           pass_dist=dist)

@@ -1,0 +1,235 @@
+"""HTJ2K cleanup coder on the GPU: encode kernel K-e and decode kernel K-f.
+
+Counterpart of grok_tpu/t1/ht_jax.py (K3, ``encode_cblks`` :638) and
+grok_tpu/t1/ht_jax_dec.py (K4, ``decode_cleanup_batch`` :484). K-e
+``ht_cleanup_enc`` (csrc/ht_enc.cu) writes each codeblock's finished
+cleanup segment, stuffing, termination and the Scup patch included, so no
+host compaction follows it. K-f ``ht_cleanup_dec`` (csrc/ht_dec.cu) reads
+each segment directly and writes what the scalar decoder gives, zeros
+where that raises; it flags the codeblocks whose MagSgn fields are too wide
+for int32, and ``decode_cleanup_batch`` refuses a stream that has one.
+
+Each kernel's plain version runs the scalar coder of t1/ht.py block by
+block. A wrapper takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..core.errors import UnsupportedFeatureError
+from ..core.timing import StageClock
+from . import ht
+from .ebcot import T1EncodeResult
+from .ebcot_cuda import _check
+
+# magnitudes at or above this are refused (the reference's device range,
+# ht_jax.DEVICE_MAG_LIMIT): MagSgn fields stay within 25 bits
+ENC_MAG_LIMIT = 1 << 24
+# K-f decodes MagSgn fields of at most this many bits (v | e_1 << m must fit
+# 31 bits for the int32 output); a stream with a wider one is refused
+MS_BIT_LIMIT = 30
+
+# int32 table layout of csrc/ht_enc.cu and csrc/ht_dec.cu
+_T_ENC, _T_DEC, _T_MEL_EXP, _T_U = 0, 4096, 6144, 6157
+TABLE_SIZE = _T_U + 4 * 33
+
+def dec_tbl_array(dec_tbl) -> np.ndarray:
+    """DEC_TBL ([2][8][128] of (rho, u_off, e_k, e_1, len) or None) as an
+    int64 array [2, 8, 128, 5], -1 where a codeword is invalid."""
+    return np.array([[[e if e is not None else (-1,) * 5 for e in ctx] for ctx in t]
+                     for t in dec_tbl], dtype=np.int64)
+
+
+def pack_ht_tables(mel_exp, enc_tbl, dec_tbl, u_pre, u_pre_len, u_suf,
+                   u_suf_len) -> torch.Tensor:
+    """The kernels' int32 table [TABLE_SIZE]: ENC_TBL [2][2048], DEC_TBL
+    packed rho | u_off << 4 | e_k << 5 | e_1 << 9 | len << 13 (-1 when
+    invalid), MEL_EXP [13], then the four u-code tables [33] each."""
+    enc = np.asarray(enc_tbl, dtype=np.int64)
+    dec = dec_tbl_array(dec_tbl)
+    if enc.shape != (2, 2048) or dec.shape != (2, 8, 128, 5) or len(mel_exp) != 13 \
+            or any(len(t) != 33 for t in (u_pre, u_pre_len, u_suf, u_suf_len)):
+        raise ValueError("HT table shapes differ from the reference's")
+    packed = (dec[..., 0] | (dec[..., 1] << 4) | (dec[..., 2] << 5) | (dec[..., 3] << 9)
+              | (dec[..., 4] << 13))
+    packed = np.where(dec[..., 4] < 0, -1, packed)
+    flat = np.concatenate([enc.reshape(-1), packed.reshape(-1), mel_exp,
+                           u_pre, u_pre_len, u_suf, u_suf_len]).astype(np.int32)
+    return torch.from_numpy(flat)
+
+
+_TABLES: dict[str, torch.Tensor] = {}
+
+
+def ht_tables(dev: torch.device) -> torch.Tensor:
+    """The port's HT tables (t1/ht.py) in the kernels' layout on ``dev``."""
+    key = str(dev)
+    if key not in _TABLES:
+        _TABLES[key] = pack_ht_tables(ht.MEL_EXP, ht.ENC_TBL, ht.DEC_TBL, ht._U_PRE,
+                                      ht._U_PRE_LEN, ht._U_SUF, ht._U_SUF_LEN).to(dev)
+    return _TABLES[key]
+
+
+def segment_capacity(bh: int, bw: int, mmax: int) -> tuple[int, int]:
+    """(segment bytes, MEL + VLC scratch bytes) that a bh x bw codeblock
+    whose MagSgn fields are at most ``mmax`` bits can need: at most mmax
+    MagSgn bits a sample, 15 VLC bits a quad (a 7-bit CxtVLC codeword, half
+    a pair's 16 u-code bits) and 9 MEL bits a quad (1.5 events of at most
+    6 bits), each stream at least 7 payload bits a byte."""
+    nq = ((bh + 1) // 2) * ((bw + 1) // 2)
+    aux = -(-(nq * 15 + 16) // 7) + -(-(nq * 9 + 12) // 7) + 16
+    return -(-(bh * bw * mmax) // 7) + aux + 16, aux
+
+
+# ==================================================== K-e: cleanup encode
+def ht_cleanup_enc(coeffs: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
+                   tab: torch.Tensor, mmax: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cleanup segments of a codeblock batch: (buf [n, cap] uint8, zero
+    past each segment, lengths [n] int64; 0 for an empty or all-zero
+    codeblock). coeffs [n, bh, bw] int32 whose largest magnitude M gives
+    mmax = bit length of 2M - 1 (the widest MagSgn field, which sizes the
+    segments); heights/widths [n] int32; tab: ht_tables(). Raises if a
+    segment overflows its capacity."""
+    n, bh, bw = coeffs.shape
+    dev = coeffs.device
+    _check(coeffs, "coeffs", torch.int32, 3, dev)
+    _check(heights, "heights", torch.int32, 1, dev)
+    _check(widths, "widths", torch.int32, 1, dev)
+    _check(tab, "tab", torch.int32, 1, dev)
+    if heights.shape != (n,) or widths.shape != (n,) or tab.shape != (TABLE_SIZE,):
+        raise ValueError("heights/widths must be [n], tab [TABLE_SIZE]")
+    if bw > 1024:
+        raise ValueError("codeblocks wider than 1024")
+    cap, aux = segment_capacity(bh, bw, mmax)
+    if dev.type == "cpu":
+        return ht_cleanup_enc_plain(coeffs, heights, widths, cap)
+    if dev.type != "cuda":
+        raise ValueError(f"ht_cleanup_enc: unsupported device {dev}")
+    buf = torch.zeros((n, cap), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((n, aux), dtype=torch.uint8, device=dev)
+    lengths = torch.empty(n, dtype=torch.int32, device=dev)
+    kernels.KERNELS["ht_cleanup_enc"].call(
+        coeffs.data_ptr(), heights.data_ptr(), widths.data_ptr(), tab.data_ptr(),
+        buf.data_ptr(), scratch.data_ptr(), lengths.data_ptr(), n, bh, bw, cap, aux,
+        kernels.stream_ptr(dev))
+    if bool((lengths < 0).any()):
+        raise RuntimeError("ht_cleanup_enc: codeblock segment buffer overflow")
+    return buf, lengths.to(torch.int64)
+
+
+def ht_cleanup_enc_plain(coeffs, heights, widths, cap: int):
+    """Plain form of K-e: ht.encode_cleanup block by block."""
+    n = coeffs.shape[0]
+    c = coeffs.numpy()
+    buf = np.zeros((n, cap), dtype=np.uint8)
+    lengths = np.zeros(n, dtype=np.int64)
+    for i, (h, w) in enumerate(zip(heights.tolist(), widths.tolist())):
+        blk = c[i, :max(h, 0), :max(w, 0)]
+        if blk.size == 0 or not blk.any():
+            continue
+        seg = ht.encode_cleanup(blk, h, w)
+        if len(seg) > cap:
+            raise RuntimeError("ht_cleanup_enc: codeblock segment buffer overflow")
+        buf[i, :len(seg)] = np.frombuffer(seg, dtype=np.uint8)
+        lengths[i] = len(seg)
+    return torch.from_numpy(buf), torch.from_numpy(lengths)
+
+
+# ==================================================== K-f: cleanup decode
+def ht_cleanup_dec(data: torch.Tensor, lengths: torch.Tensor, heights: torch.Tensor,
+                   widths: torch.Tensor, tab: torch.Tensor, bh: int,
+                   bw: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode cleanup segments: (out [n, bh, bw] int32, wide [n] bool). data
+    [n, L] uint8, lengths/heights/widths [n] int32, tab: ht_tables(). out
+    is t1/ht.py decode_cleanup's, zeros where that raises ValueError (an
+    invalid codeword); a codeblock with a MagSgn field over MS_BIT_LIMIT
+    bits has wide True and zeros."""
+    n, L = data.shape
+    dev = data.device
+    _check(data, "data", torch.uint8, 2, dev)
+    for t, name in ((lengths, "lengths"), (heights, "heights"), (widths, "widths")):
+        _check(t, name, torch.int32, 1, dev)
+        if t.shape != (n,):
+            raise ValueError(f"{name} must be [n]")
+    _check(tab, "tab", torch.int32, 1, dev)
+    if tab.shape != (TABLE_SIZE,) or bw > 1024:
+        raise ValueError("tab must be [TABLE_SIZE], codeblocks at most 1024 wide")
+    if dev.type == "cpu":
+        return ht_cleanup_dec_plain(data, lengths, heights, widths, bh, bw)
+    if dev.type != "cuda":
+        raise ValueError(f"ht_cleanup_dec: unsupported device {dev}")
+    out = torch.zeros((n, bh, bw), dtype=torch.int32, device=dev)
+    wide = torch.empty(n, dtype=torch.uint8, device=dev)
+    kernels.KERNELS["ht_cleanup_dec"].call(
+        data.data_ptr(), lengths.data_ptr(), heights.data_ptr(), widths.data_ptr(),
+        tab.data_ptr(), out.data_ptr(), wide.data_ptr(), n, L, bh, bw,
+        kernels.stream_ptr(dev))
+    return out, wide.bool()
+
+
+def ht_cleanup_dec_plain(data, lengths, heights, widths, bh: int, bw: int):
+    """Plain form of K-f: ht.decode_cleanup block by block."""
+    n = data.shape[0]
+    d = data.numpy()
+    out = np.zeros((n, bh, bw), dtype=np.int32)
+    wide = np.zeros(n, dtype=bool)
+    for i, (ln, h, w) in enumerate(zip(lengths.tolist(), heights.tolist(), widths.tolist())):
+        if h <= 0 or w <= 0:
+            continue
+        try:
+            out[i, :h, :w] = ht.decode_cleanup(d[i, :ln].tobytes(), h, w, MS_BIT_LIMIT)
+        except UnsupportedFeatureError:
+            wide[i] = True
+        except ValueError:
+            pass
+    return torch.from_numpy(out), torch.from_numpy(wide)
+
+
+# ==================================================== public entry points
+def _int32(t, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(t, device=dev).to(torch.int32).contiguous()
+
+
+def encode_cblks(coeffs: torch.Tensor, heights, widths,
+                 clock: StageClock | None = None) -> T1EncodeResult:
+    """HT cleanup-only encode of a codeblock batch on the device holding
+    ``coeffs`` (counterpart of ht_jax.encode_cblks): every non-empty
+    codeblock codes one pass, numbps = npasses = (length > 0) and
+    pass_rates = lengths. No distortions: only a layer allocation would
+    read them, and none is ported."""
+    clock = clock or StageClock(coeffs.device, None)
+    dev = coeffs.device
+    coeffs = coeffs.to(torch.int32).contiguous()
+    mx = int(coeffs.abs().max()) if coeffs.numel() else 0
+    if mx >= ENC_MAG_LIMIT:
+        raise UnsupportedFeatureError(
+            f"HT encode of magnitudes >= 2**24 (largest {mx})")
+    mmax = max((2 * mx - 1).bit_length(), 1)
+    buf, lengths = ht_cleanup_enc(coeffs, _int32(heights, dev), _int32(widths, dev),
+                                  ht_tables(dev), mmax)
+    clock.mark("t1_ht_enc")
+    numbps = (lengths > 0).to(torch.int64)
+    return T1EncodeResult(data=buf, lengths=lengths, numbps=numbps, npasses=numbps.clone(),
+                          pass_rates=lengths[:, None].clone(), pass_dist=None)
+
+
+def decode_cleanup_batch(data: torch.Tensor, lengths, heights, widths, bh: int, bw: int,
+                         clock: StageClock | None = None) -> torch.Tensor:
+    """Decode a batch of HT cleanup segments on the device holding ``data``
+    (counterpart of ht_jax_dec.decode_cleanup_batch): [n, bh, bw] int32
+    coefficients equal to t1/ht.py decode_cleanup's, zeros where that
+    raises ValueError. Raises UnsupportedFeatureError for a MagSgn field
+    over MS_BIT_LIMIT bits, which no 8-16-bit lossless stream reaches."""
+    clock = clock or StageClock(data.device, None)
+    dev = data.device
+    out, wide = ht_cleanup_dec(data.contiguous(), _int32(lengths, dev), _int32(heights, dev),
+                               _int32(widths, dev), ht_tables(dev), bh, bw)
+    clock.mark("t1_ht_dec")
+    if bool(wide.any()):
+        raise UnsupportedFeatureError(
+            f"HT decode of MagSgn fields wider than {MS_BIT_LIMIT} bits")
+    return out

@@ -1,6 +1,7 @@
-"""Packet header coding and packet assembly, encoder half (T.800
-B.9/B.10); counterpart of grok_tpu/t2/packets.py. Host-side serial work:
-the payload bytes come from the device T1 coder."""
+"""Packet header coding, packet assembly and packet parsing (T.800
+B.9/B.10); counterpart of grok_tpu/t2/packets.py without SOP, EPH and
+packed headers. Host-side serial work: the payload bytes come from, and go
+to, the device T1 coders."""
 
 from __future__ import annotations
 
@@ -8,7 +9,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..codestream.bitio import BitWriter
+from ..codestream.bitio import BitReader, BitWriter
+from ..core.errors import CorruptPacketError
 from ..tile.geometry import BandGeom, PrecinctGeom
 from .tagtree import TagTree
 
@@ -20,6 +22,16 @@ def _floor_log2(n: int) -> int:
 def _segment_splits(style: int, start_pass: int, npasses: int) -> list[int]:
     """Pass counts of the codeword segments covering passes
     [start_pass, start_pass + npasses) (T.800 D.4 termination rules)."""
+    if style & 0x40:
+        # HT (T.814): the cleanup pass terminates its segment; SigProp and
+        # MagRef of the same HT set share the following segment
+        out = []
+        for p in range(start_pass, start_pass + npasses):
+            if p % 3 == 2 and out and p - 1 >= start_pass and (p - 1) % 3 == 1:
+                out[-1] += 1
+            else:
+                out.append(1)
+        return out
     if style & 0x04:  # TERMALL: every pass is its own segment
         return [1] * npasses
     if style & 0x01:  # BYPASS: boundaries at MQ<->raw coder switches
@@ -56,6 +68,20 @@ def write_numpasses(bio: BitWriter, n: int) -> None:
         bio.write_bits(n - 37, 7)
 
 
+def read_numpasses(bio: BitReader) -> int:
+    if not bio.read_bit():
+        return 1
+    if not bio.read_bit():
+        return 2
+    v = bio.read_bits(2)
+    if v < 3:
+        return 3 + v
+    v = bio.read_bits(5)
+    if v < 31:
+        return 6 + v
+    return 37 + bio.read_bits(7)
+
+
 @dataclass
 class CblkEnc:
     """Encoder-side codeblock T2 record."""
@@ -73,6 +99,18 @@ class CblkEnc:
     first_layer: int = 0
     style: int = 0  # codeblock style (segmentation: TERMALL/BYPASS)
     pass_rates: object = None  # cumulative byte offsets per pass
+
+
+@dataclass
+class CblkDec:
+    """Decoder-side codeblock T2 record."""
+
+    segments: list[bytes] = field(default_factory=list)
+    npasses: int = 0
+    numbps: int = 0  # set on first inclusion from the imsb tree
+    lblock: int = 3
+    included: bool = False
+    style: int = 0
 
 
 class PrecinctCtx:
@@ -161,3 +199,48 @@ def encode_packet(prc_ctxs: list[PrecinctCtx], layer: int) -> bytes:
                 cb.passes_done += npl
     bio.flush()
     return bio.getvalue() + bytes(body)
+
+
+def decode_packet(data, pos: int, prc_ctxs: list[PrecinctCtx], layer: int) -> int:
+    """Parse one packet starting at data[pos]; returns the position after
+    it. Each included codeblock's contribution is appended to its
+    segments."""
+    n = len(data)
+    bio = BitReader(data, pos)
+    contributions: list[tuple[CblkDec, int, int]] = []  # (cblk, npasses, nbytes)
+    if bio.read_bit():
+        for ctx in prc_ctxs:
+            for geom, cb in zip(ctx.prc.cblks, ctx.cblks):
+                if cb is None:
+                    continue
+                if not cb.included:
+                    inc = ctx.incl_tree.decode(bio, geom.cx, geom.cy, layer + 1)
+                else:
+                    inc = bool(bio.read_bit())
+                if not inc:
+                    continue
+                if not cb.included:
+                    cb.numbps = ctx.band.num_bps - ctx.imsb_tree.decode_value(
+                        bio, geom.cx, geom.cy)
+                    if cb.numbps < 0:
+                        raise CorruptPacketError("negative numbps")
+                    cb.included = True
+                npl = read_numpasses(bio)
+                while bio.read_bit():
+                    cb.lblock += 1
+                    if cb.lblock > 32:
+                        raise CorruptPacketError("runaway lblock")
+                if cb.npasses + npl > 165:
+                    raise CorruptPacketError("too many coding passes")
+                for np_s in _segment_splits(cb.style, cb.npasses, npl):
+                    contributions.append(
+                        (cb, np_s, bio.read_bits(cb.lblock + _floor_log2(np_s))))
+    bio.align()
+    pos = bio.byte_pos
+    for cb, npl, nbytes in contributions:
+        if pos + nbytes > n:
+            raise CorruptPacketError("packet body truncated")
+        cb.segments.append(bytes(data[pos:pos + nbytes]))
+        cb.npasses += npl
+        pos += nbytes
+    return pos

@@ -1,12 +1,13 @@
-"""Tag trees (T.800 B.10.2), encoder half: 2-D quad-tree coding of
-per-codeblock inclusion layers and missing-MSB counts inside a precinct.
-Counterpart of grok_tpu/t2/tagtree.py."""
+"""Tag trees (T.800 B.10.2): 2-D quad-tree coding of per-codeblock
+inclusion layers and missing-MSB counts inside a precinct. Counterpart of
+grok_tpu/t2/tagtree.py."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..codestream.bitio import BitWriter
+from ..codestream.bitio import BitReader, BitWriter
+from ..core.errors import CorruptPacketError
 
 
 class TagTree:
@@ -70,3 +71,28 @@ class TagTree:
                     self.known[lvl][cy, cx] = True
             self.lows[lvl][cy, cx] = low
             tmin = low
+
+    def decode(self, bio: BitReader, x: int, y: int, threshold: int) -> bool:
+        """Consume bits until 'leaf value < threshold' is decided; True iff
+        the leaf value is known and below the threshold."""
+        tmin = 0
+        for (lvl, cy, cx) in self._path(x, y):
+            low = max(self.lows[lvl][cy, cx], tmin)
+            while low < threshold and not self.known[lvl][cy, cx]:
+                if bio.read_bit():
+                    self.known[lvl][cy, cx] = True
+                    self.values[lvl][cy, cx] = low
+                else:
+                    low += 1
+            self.lows[lvl][cy, cx] = low
+            tmin = low
+        return bool(self.known[0][y, x] and self.values[0][y, x] < threshold)
+
+    def decode_value(self, bio: BitReader, x: int, y: int, limit: int = 74) -> int:
+        """Fully decode the leaf value (missing-MSB counts)."""
+        t = 1
+        while not self.decode(bio, x, y, t):
+            t += 1
+            if t > limit:
+                raise CorruptPacketError("tag tree value out of range")
+        return int(self.values[0][y, x])

@@ -1,13 +1,17 @@
-"""Per-tile encode pipeline: transform -> codeblock gather -> T1 -> T2.
+"""Per-tile pipelines. Encode: transform -> codeblock gather -> T1 -> T2;
+decode (HT): T2 -> T1 -> codeblock scatter -> inverse transform.
 
-Counterpart of the encode half of grok_tpu/tile/tile_processor.py: the
-device branch of compress (:249-279), _entropy_and_t2 (:400) and the
-Python _emit_packets (:655) for one quality layer without rate control
-(every pass of every codeblock goes into the single layer).
+Counterpart of grok_tpu/tile/tile_processor.py: the device branch of
+compress (:249-279), _entropy_and_t2 (:400) with its HT branch
+(:492-538) and the Python _emit_packets (:655) for one quality layer
+without rate control (every pass of every codeblock goes into the single
+layer); and decompress (:1303) over the object T2 path
+_decompress_t1_objects (:1154) with the device inverse chain (:1422-1442).
 
 The coefficients stay on the device from the transform through the
-gather and both T1 kernels; only the codeblock bytes, lengths, pass
-rates and plane counts come back to the host, for T2.
+gather and the T1 kernels; only the codeblock bytes, lengths, pass rates
+and plane counts come back to the host, for T2. On decode the segments
+go up once and the decoded samples come back once.
 """
 
 from __future__ import annotations
@@ -19,11 +23,14 @@ import torch
 
 from ..codestream.quantizer import apply_band_quant
 from ..codestream.structs import Siz, Tcp
+from ..core.errors import UnsupportedFeatureError
+from ..core.params import CBLK_HT
 from ..core.rect import Rect, ceil_div
 from ..core.timing import StageClock
-from ..ops.transform import forward_transform
+from ..ops.transform import forward_transform, inverse_transform
+from ..t1 import ht_cuda
 from ..t1.ebcot_cuda import encode_cblks
-from ..t2.packets import CblkEnc, PrecinctCtx, encode_packet
+from ..t2.packets import CblkDec, CblkEnc, PrecinctCtx, decode_packet, encode_packet
 from ..t2.progression import packet_order
 from .geometry import BAND_LL, TileCompGeom, cached_tile_comp_geometry
 
@@ -51,6 +58,19 @@ def _repair_pass_rates(pass_rates: np.ndarray, npasses: np.ndarray) -> None:
     work = np.where(pad, big, pass_rates)
     work = np.minimum.accumulate(work[:, ::-1], axis=1)[:, ::-1]
     pass_rates[...] = np.where(pad, pass_rates, work)
+
+
+def _block_index(base, stride, heights, widths, bh: int,
+                 bw: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat sample index of every position of a [n, bh, bw] codeblock batch
+    in the concatenated component planes (codeblock i's top-left sample at
+    base[i], rows stride[i] apart), and whether it lies inside its
+    codeblock."""
+    ys = torch.arange(bh, device=base.device)[None, :, None]
+    xs = torch.arange(bw, device=base.device)[None, None, :]
+    idx = base[:, None, None] + ys * stride[:, None, None] + xs
+    inside = (ys < heights[:, None, None]) & (xs < widths[:, None, None])
+    return idx, inside
 
 
 @dataclass
@@ -147,11 +167,15 @@ class TileProcessor:
         cbw = max(int(plan.widths.max()), 1)
         flat = torch.cat([c.reshape(-1) for c in coeffs]
                          + [torch.zeros(1, dtype=torch.int32, device=self.device)])
-        ys = torch.arange(cbh, device=self.device)[None, :, None]
-        xs = torch.arange(cbw, device=self.device)[None, None, :]
-        idx = plan.base[:, None, None] + ys * plan.stride[:, None, None] + xs
-        inside = (ys < plan.heights[:, None, None]) & (xs < plan.widths[:, None, None])
+        idx, inside = _block_index(plan.base, plan.stride, plan.heights, plan.widths,
+                                   cbh, cbw)
         return flat[torch.where(inside, idx, flat.numel() - 1)]
+
+    def _needs_pass_dist(self) -> bool:
+        """Whether a layer allocation reads per-pass distortions (the
+        reference's _needs_pass_dist, :753): only with several layers, as
+        rate and PSNR targets are outside the slices."""
+        return self.tcp.num_layers != 1
 
     def _entropy_and_t2(self, coeffs: list[torch.Tensor], clock: StageClock):
         plan = self.gather_plan()
@@ -159,8 +183,13 @@ class TileProcessor:
             return b""
         batch = self.gather(coeffs, plan)
         clock.mark("gather")
-        res = encode_cblks(batch, plan.heights, plan.widths, plan.orients,
-                           styles=plan.styles, clock=clock)
+        use_ht = bool(self.tcp.tccps[0].cblk_style & CBLK_HT)
+        if use_ht:
+            res = ht_cuda.encode_cblks(batch, plan.heights, plan.widths, clock=clock)
+        else:
+            res = encode_cblks(batch, plan.heights, plan.widths, plan.orients,
+                               styles=plan.styles, clock=clock,
+                               want_dist=self._needs_pass_dist())
         maxlen = int(res.lengths.max())
         data = res.data[:, :maxlen].cpu().numpy()
         lengths = res.lengths.cpu().numpy()
@@ -168,7 +197,8 @@ class TileProcessor:
         numbps = res.numbps.cpu().numpy()
         npasses = res.npasses.cpu().numpy()
         clock.mark("to_host")
-        _repair_pass_rates(rates, npasses)
+        if not use_ht:  # an HT codeblock has one pass: nothing to repair
+            _repair_pass_rates(rates, npasses)
         out = self._emit_packets(plan.refs, data, lengths, rates, numbps, npasses)
         clock.mark("t2")
         return out
@@ -207,3 +237,78 @@ class TileProcessor:
                     for bi in range(len(res.bands))]
             parts.append(encode_packet(ctxs, pk.layer))
         return b"".join(parts)
+
+    # ------------------------------------------------------------ decode
+    def decompress(self, body, clock: StageClock | None = None) -> list[torch.Tensor]:
+        """Decode an HT tile body (its packets) into per-component int32
+        sample planes on the device."""
+        clock = clock or StageClock(self.device, None)
+        siz, tcp = self.siz, self.tcp
+        for c in range(siz.num_comps):
+            apply_band_quant(self.geoms[c], tcp.tccps[c])
+
+        # ---- T2: parse every packet (the object path of the reference)
+        prc_ctx_map: dict[tuple[int, int, int, int], PrecinctCtx] = {}
+        for c, g in enumerate(self.geoms):
+            style = tcp.tccps[c].cblk_style & 0x7F
+            for res in g.resolutions:
+                for bi, band in enumerate(res.bands):
+                    for pi, prc in enumerate(band.precincts):
+                        ctx = PrecinctCtx(band, prc)
+                        ctx.cblks = [CblkDec(style=style) for _ in prc.cblks]
+                        prc_ctx_map[(c, res.r, bi, pi)] = ctx
+        pos = 0
+        for pk in packet_order(siz, tcp, self.geoms, self.tile_rect):
+            if pos >= len(body):
+                break  # truncated stream: the remaining packets are empty
+            res = self.geoms[pk.comp].resolutions[pk.res]
+            pos = decode_packet(body, pos, [prc_ctx_map[(pk.comp, pk.res, bi, pk.prec)]
+                                            for bi in range(len(res.bands))], pk.layer)
+
+        # ---- the codeblocks that carry data; the others decode to zeros
+        offsets = np.cumsum([0] + [g.rect.area for g in self.geoms])
+        segs: list[bytes] = []
+        cols: list[tuple[int, int, int, int]] = []
+        for (c, r, bi, pi), ctx in prc_ctx_map.items():
+            g = self.geoms[c]
+            band = g.resolutions[r].bands[bi]
+            oy, ox = _band_origin_in_packed(g, r, band.orient)
+            for cg, cb in zip(ctx.prc.cblks, ctx.cblks):
+                if cb.npasses == 0 or cg.rect.empty():
+                    continue
+                if cb.npasses > 1 or cb.numbps > 1:
+                    raise UnsupportedFeatureError(
+                        "outside the ported slices: HT refinement passes")
+                y0 = cg.rect.y0 - band.rect.y0 + oy
+                x0 = cg.rect.x0 - band.rect.x0 + ox
+                segs.append(b"".join(cb.segments))
+                cols.append((int(offsets[c]) + y0 * g.rect.width + x0, g.rect.width,
+                             cg.rect.height, cg.rect.width))
+        clock.mark("t2")
+
+        flat = torch.zeros(int(offsets[-1]) + 1, dtype=torch.int32, device=self.device)
+        if segs:
+            n = len(segs)
+            data = np.zeros((n, max(max(len(s) for s in segs), 2)), dtype=np.uint8)
+            for i, s in enumerate(segs):
+                data[i, :len(s)] = np.frombuffer(s, dtype=np.uint8)
+            t = torch.tensor(cols, dtype=torch.int64).T
+            bh, bw = int(t[2].max()), int(t[3].max())
+            base, stride, heights, widths = (v.to(self.device) for v in t)
+            lens = torch.tensor([len(s) for s in segs], dtype=torch.int64).to(self.device)
+            data_t = torch.from_numpy(data).to(self.device)
+            clock.mark("upload")
+            out = ht_cuda.decode_cleanup_batch(data_t, lens, heights, widths, bh, bw,
+                                               clock=clock)
+            idx, inside = _block_index(base, stride, heights, widths, bh, bw)
+            flat[torch.where(inside, idx, flat.numel() - 1)] = out
+        planes = [flat[int(offsets[c]):int(offsets[c + 1])].view(g.rect.height, g.rect.width)
+                  for c, g in enumerate(self.geoms)]
+        clock.mark("scatter")
+        comps = siz.comps
+        out_planes = inverse_transform(
+            planes, [g.rect for g in self.geoms],
+            [t.num_resolutions - 1 for t in tcp.tccps], [c.prec for c in comps],
+            [c.signed for c in comps], rct=tcp.mct == 1 and siz.num_comps >= 3)
+        clock.mark("inverse")
+        return out_planes

@@ -103,7 +103,7 @@ def test_stream_identical_to_pallas_interpret(reference_env):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(ht=True), dict(irreversible=True), dict(mct_matrix=np.eye(3)), dict(num_layers=2),
+    dict(ht=True, ht_refine=True), dict(irreversible=True), dict(mct_matrix=np.eye(3)), dict(num_layers=2),
     dict(layer_rates=[10.0]), dict(roi_comp=0, roi_shift=2), dict(precinct_sizes=[(7, 7)]),
     dict(use_sop=True), dict(use_eph=True), dict(write_tlm=True), dict(write_plt=True),
     dict(tp_divider="R"), dict(profile=3), dict(cblk_style=0x40),
@@ -124,6 +124,7 @@ def test_stage_times_are_reported():
     stages = {}
     gt.compress(gt.Image.from_array(natural_image(16, 16), prec=8),
                 gt.CompressParams(num_resolutions=2), device="cpu", stage_ms=stages)
-    assert {"markers", "upload", "transform", "gather", "t1_symbols", "t1_pack",
-            "t1_dist", "to_host", "t2"} <= set(stages)
+    # one layer: no allocation reads per-pass distortions, so none are summed
+    assert set(stages) == {"markers", "upload", "transform", "gather", "t1_symbols",
+                           "t1_pack", "to_host", "t2"}
     assert all(v >= 0 for v in stages.values())

@@ -11,9 +11,11 @@ import torch
 import grok_tpu as gk
 import grok_tpu_torch as gt
 from grok_tpu.codestream.quantizer import band_norm as ref_band_norm
-from grok_tpu.t1 import ebcot_np, mq_np
+from grok_tpu.t1 import ebcot_np, ht, mq_np
 from grok_tpu_torch import convert
+from grok_tpu_torch.t1 import ht as port_ht
 from grok_tpu_torch.t1.ebcot_cuda import device_tables
+from grok_tpu_torch.t1.ht_cuda import ht_tables
 
 
 def _reference_tables() -> dict:
@@ -23,13 +25,14 @@ def _reference_tables() -> dict:
         "band_norms": np.array([[ref_band_norm(False, o, lv)
                                  for lv in range(1, convert.NORM_LEVELS + 1)]
                                 for o in range(4)]),
+        **{k: getattr(ht, k) for k in convert.HT_TABLES},
     }
 
 
 def test_reference_tables_equal_builtin_copies():
     ref = convert.tables_from_numpy(_reference_tables(), device="cpu")
     own = convert.builtin_tables(device="cpu")
-    assert set(ref) == set(own) == {"ctx", "mq", "band_norms"}
+    assert set(ref) == set(own) == {"ctx", "mq", "band_norms", "ht"}
     assert torch.equal(ref["ctx"], own["ctx"]) and ref["ctx"].dtype == torch.int32
     assert torch.equal(ref["mq"], own["mq"]) and tuple(ref["mq"].shape) == (4, 47)
     # the norms come from the same float64 recurrence: equal to the last bit
@@ -37,6 +40,25 @@ def test_reference_tables_equal_builtin_copies():
     # and they are what the kernels are given
     dev = device_tables(torch.device("cpu"))
     assert torch.equal(dev["ctx"], own["ctx"]) and torch.equal(dev["mq"], own["mq"])
+
+
+def test_reference_ht_tables_equal_builtin_copies():
+    """The HT coder's tables, in the kernels' layout and as the scalar coder
+    holds them, equal grok_tpu.t1.ht's."""
+    ref = convert.tables_from_numpy(_reference_tables(), device="cpu")["ht"]
+    own = convert.builtin_tables(device="cpu")["ht"]
+    assert ref.dtype == torch.int32 and torch.equal(ref, own)
+    assert torch.equal(own, ht_tables(torch.device("cpu")))
+    for k in convert.HT_TABLES:
+        assert getattr(port_ht, k) == getattr(ht, k), k
+
+
+@pytest.mark.parametrize("key,cut", [("ENC_TBL", 1), ("_U_SUF", 32), ("MEL_EXP", 12)])
+def test_ht_tables_of_the_wrong_shape_raise(key, cut):
+    d = _reference_tables()
+    d[key] = d[key][:cut]
+    with pytest.raises(ValueError):
+        convert.tables_from_numpy(d)
 
 
 def test_tables_of_the_wrong_shape_raise():

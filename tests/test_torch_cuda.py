@@ -4,7 +4,7 @@ present; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-All four kernels are integer-only, so every comparison is exact."""
+All eight kernels are integer-only, so every comparison is exact."""
 
 import numpy as np
 import pytest
@@ -13,6 +13,8 @@ import torch
 import grok_tpu_torch as gt
 from grok_tpu_torch.ops import transform as tr
 from grok_tpu_torch.t1 import ebcot_cuda as ec
+from grok_tpu_torch.t1 import ht as port_ht
+from grok_tpu_torch.t1 import ht_cuda as hc
 from grok_tpu_torch.t1.ebcot import lane_numbps
 
 pytestmark = pytest.mark.cuda
@@ -190,4 +192,164 @@ def test_compress_on_card_equals_plain_path(cuda):
     plain = gt.compress(gt.Image.from_array(arr, prec=8), gt.CompressParams(**params),
                         device="cpu")
     assert on_card == plain
-    assert all(v > 0 for v in counts.values()), counts
+    for name in ("dc_rct_fwd", "dwt53_fwd_level", "ebcot_symbols", "mq_pack"):
+        assert counts[name] > 0, counts
+
+
+# ------------------------------------------------------------ HT, inverse
+
+
+def _ht_batch(seed, n, bh, bw, mag, density=0.5, ragged=False):
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, mag + 1, size=(n, bh, bw)) * (rng.random((n, bh, bw)) < density)
+    c = np.where(rng.random((n, bh, bw)) < 0.5, -c, c)
+    h = rng.integers(1, bh + 1, size=n) if ragged else np.full(n, bh)
+    w = rng.integers(1, bw + 1, size=n) if ragged else np.full(n, bw)
+    c[0] = 0  # an all-zero codeblock has an empty segment
+    for i in range(n):
+        c[i, h[i]:] = 0
+        c[i, :, w[i]:] = 0
+    return (torch.from_numpy(c.astype(np.int32)), torch.from_numpy(h.astype(np.int32)),
+            torch.from_numpy(w.astype(np.int32)))
+
+
+def _ht_cases():
+    stress = np.full((6, 64, 64), -((1 << 20) - 1), dtype=np.int32)
+    stress[1] = (1 << 15) - 1
+    stress[2] = np.random.default_rng(5).choice([-4095, 4095], size=(64, 64))
+    stress[3, ::2] = 0
+    stress[4, :, ::3] = 0
+    full = torch.full((6,), 64, dtype=torch.int32)
+    return {
+        "64x64": _ht_batch(1, 16, 64, 64, 200),
+        "32x32": _ht_batch(2, 16, 32, 32, 65000, 0.6),
+        "16x16": _ht_batch(3, 16, 16, 16, (1 << 23) - 1, 0.3),
+        "4x4": _ht_batch(4, 16, 4, 4, 3, 0.9),
+        "8x32": _ht_batch(5, 16, 8, 32, 255, 1.0),
+        "ragged": _ht_batch(6, 24, 64, 64, 500, 0.7, ragged=True),
+        "odd": _ht_batch(7, 16, 7, 5, 100),
+        "stuffing": (torch.from_numpy(stress), full, full.clone()),
+    }
+
+
+def _ht_encode_both(cuda, c, h, w):
+    mmax = max((2 * int(c.abs().max()) - 1).bit_length(), 1)
+    ref = hc.ht_cleanup_enc(c, h, w, hc.ht_tables(torch.device("cpu")), mmax)
+    got = hc.ht_cleanup_enc(c.to(cuda), h.to(cuda), w.to(cuda), hc.ht_tables(cuda), mmax)
+    torch.cuda.synchronize()
+    return ref, got
+
+
+@pytest.mark.parametrize("case", list(_ht_cases()))
+def test_ht_kernels_equal_plain(cuda, case):
+    c, h, w = _ht_cases()[case]
+    before = (_launches("ht_cleanup_enc"), _launches("ht_cleanup_dec"))
+    (rbuf, rlen), (gbuf, glen) = _ht_encode_both(cuda, c, h, w)
+    assert torch.equal(glen.cpu(), rlen) and torch.equal(gbuf.cpu(), rbuf)
+    data = rbuf[:, :max(int(rlen.max()), 2)].contiguous()
+    bh, bw = c.shape[1:]
+    ref = hc.ht_cleanup_dec(data, rlen.to(torch.int32), h, w, hc.ht_tables(torch.device("cpu")),
+                            bh, bw)
+    got = hc.ht_cleanup_dec(data.to(cuda), rlen.to(torch.int32).to(cuda), h.to(cuda), w.to(cuda),
+                            hc.ht_tables(cuda), bh, bw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    assert not bool(ref[1].any()) and torch.equal(ref[0], c)
+    assert (_launches("ht_cleanup_enc"), _launches("ht_cleanup_dec")) > before
+
+
+def test_ht_encode_kernel_raises_on_overflow(cuda):
+    """A capacity sized for 1-bit MagSgn fields: the kernel flags the
+    segments that do not fit and the wrapper raises, as the plain one does."""
+    c, h, w = _ht_cases()["stuffing"]
+    with pytest.raises(RuntimeError, match="overflow"):
+        hc.ht_cleanup_enc(c, h, w, hc.ht_tables(torch.device("cpu")), 1)
+    with pytest.raises(RuntimeError, match="overflow"):
+        hc.ht_cleanup_enc(c.to(cuda), h.to(cuda), w.to(cuda), hc.ht_tables(cuda), 1)
+
+
+@pytest.mark.parametrize("seed", [109, 110])
+def test_ht_decode_kernel_equals_plain_on_garbage(cuda, seed):
+    rng = np.random.default_rng(seed)
+    n, L = 32, 400
+    data = torch.from_numpy(rng.integers(0, 256, size=(n, L), dtype=np.uint8))
+    lens = torch.from_numpy(rng.integers(0, L + 1, size=n).astype(np.int32))
+    hw = torch.from_numpy(rng.integers(1, 33, size=(2, n)).astype(np.int32))
+    ref = hc.ht_cleanup_dec(data, lens, hw[0].contiguous(), hw[1].contiguous(),
+                            hc.ht_tables(torch.device("cpu")), 32, 32)
+    got = hc.ht_cleanup_dec(data.to(cuda), lens.to(cuda), hw[0].contiguous().to(cuda),
+                            hw[1].contiguous().to(cuda), hc.ht_tables(cuda), 32, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+
+
+def test_ht_decode_kernel_flags_wide_fields(cuda):
+    """MagSgn fields over 30 bits: the kernel flags the same codeblocks as
+    the plain version, with zeros, and decode_cleanup_batch refuses them."""
+    c = np.zeros((3, 32, 32), dtype=np.int64)
+    c[0, :4, :4] = (1 << 29) + 12345
+    c[1, 2, 2] = -(1 << 30)
+    c[2] = 77
+    segs = [port_ht.encode_cleanup(b, 32, 32) for b in c]
+    data = torch.zeros((3, max(map(len, segs))), dtype=torch.uint8)
+    for i, s in enumerate(segs):
+        data[i, :len(s)] = torch.frombuffer(bytearray(s), dtype=torch.uint8)
+    lens = torch.tensor([len(s) for s in segs], dtype=torch.int32)
+    hw = torch.full((3,), 32, dtype=torch.int32)
+    ref = hc.ht_cleanup_dec(data, lens, hw, hw, hc.ht_tables(torch.device("cpu")), 32, 32)
+    got = hc.ht_cleanup_dec(data.to(cuda), lens.to(cuda), hw.to(cuda), hw.to(cuda),
+                            hc.ht_tables(cuda), 32, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    assert bool(ref[1].any()) and not bool(ref[1][2])
+    with pytest.raises(gt.UnsupportedFeatureError, match="MagSgn"):
+        hc.decode_cleanup_batch(data.to(cuda), lens.to(cuda), hw.to(cuda), hw.to(cuda), 32, 32)
+
+
+@pytest.mark.parametrize("h,w,py,px", [(1, 1, 0, 0), (1, 9, 1, 0), (2, 2, 1, 1),
+                                       (37, 53, 0, 1), (64, 33, 1, 1), (129, 256, 0, 0)])
+def test_dwt53_inv_level_kernel_equals_plain(cuda, h, w, py, px):
+    rng = np.random.default_rng(h * w + 1)
+    plane = torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, size=(h + 3, w + 5))
+                             .astype(np.int32))
+    ref = plane.clone()
+    tr.dwt53_inv_level_plain(ref, h, w, py, px)
+    got = plane.to(cuda)
+    tr.dwt53_inv_level(got, h, w, py, px)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("nc,prec,signed", [(1, 8, False), (3, 8, False), (3, 12, True),
+                                            (4, 16, False)])
+def test_rct_inv_kernel_equals_plain(cuda, nc, prec, signed):
+    rng = np.random.default_rng(nc * prec)
+    planes = [torch.from_numpy(rng.integers(-(1 << prec), 1 << prec, size=(67, 131))
+                               .astype(np.int32)) for _ in range(nc)]
+    dcs = [0 if signed else 1 << (prec - 1)] * nc
+    rng_ = [(-(1 << (prec - 1)), (1 << (prec - 1)) - 1) if signed else (0, (1 << prec) - 1)] * nc
+    ref = tr.rct_inv_dc_clip_plain([p.clone() for p in planes], dcs, rng_, nc >= 3)
+    before = _launches("rct_inv_dc_clip")
+    got = tr.rct_inv_dc_clip([p.to(cuda) for p in planes], dcs, rng_, nc >= 3)
+    torch.cuda.synchronize()
+    assert _launches("rct_inv_dc_clip") > before
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+def test_ht_roundtrip_on_card_equals_plain_path(cuda):
+    rng = np.random.default_rng(4)
+    arr = rng.integers(0, 256, size=(45, 70, 3)).astype(np.int32)
+    params = dict(num_resolutions=4, cblk_width=32, cblk_height=32, ht=True)
+    gt.reset_launch_counts()
+    on_card = gt.compress(gt.Image.from_array(arr, prec=8), gt.CompressParams(**params))
+    back = gt.decompress(on_card)
+    counts = gt.launch_counts()
+    plain = gt.compress(gt.Image.from_array(arr, prec=8), gt.CompressParams(**params),
+                        device="cpu")
+    assert on_card == plain
+    for c, comp in enumerate(back.components):
+        assert np.array_equal(comp.data, arr[:, :, c])
+    for name in ("dc_rct_fwd", "dwt53_fwd_level", "ht_cleanup_enc", "ht_cleanup_dec",
+                 "dwt53_inv_level", "rct_inv_dc_clip"):
+        assert counts[name] > 0, counts

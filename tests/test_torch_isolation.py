@@ -16,19 +16,23 @@ import numpy as np
 import grok_tpu_torch as gt
 img = gt.Image.from_array(np.arange(96, dtype=np.int32).reshape(8, 4, 3) % 256, prec=8)
 out = gt.compress(img, gt.CompressParams(num_resolutions=2), device="cpu")
+ht = gt.compress(img, gt.CompressParams(num_resolutions=2, ht=True), device="cpu")
+back = gt.decompress(ht, device="cpu")
+same = all(np.array_equal(c.data, img.components[i].data) for i, c in enumerate(back.components))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "grok_tpu" or m.startswith("grok_tpu."))
-print(json.dumps({"bytes": len(out), "ends": out[-2:].hex(), "bad": bad}))
+print(json.dumps({"bytes": len(out), "ends": out[-2:].hex(), "bad": bad, "roundtrip": same}))
 """
 
 
 def test_compress_loads_no_jax_and_no_grok_tpu():
+    """compress (both slices) and decompress, in a fresh interpreter."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert res["bytes"] > 0 and res["ends"] == "ffd9"
+    assert res["bytes"] > 0 and res["ends"] == "ffd9" and res["roundtrip"]
 
 
 def _imports(path: Path) -> list[str]:
