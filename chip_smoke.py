@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive grok_tpu_torch's two lossless paths on one CUDA card: the Part-1
-encode and the HTJ2K encode and decode.
+"""Drive grok_tpu_torch's lossless paths on one CUDA card: the Part-1
+encode and decode, and the HTJ2K encode and decode.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -11,12 +11,16 @@ line):
   3. kernels  every kernel of the paths and the TPU kernel it replaces
   4. check    each kernel against its plain version on inputs from the
               3840x2160x3 image: K-a, K-b, K-g and K-h on the whole image
-              (plain versions on the card), K-c, K-d, K-e and K-f on a
+              (plain versions on the card), K-c, K-d, K-e, K-f and K-i on a
               seeded sample of codeblocks from every band type (plain
-              versions on the CPU; K-e and K-f timed on the whole batch);
-              all integer, compared exactly
+              versions on the CPU; K-e, K-f and K-i timed on the whole
+              batch; K-i's sample once whole and once cut after a seeded
+              pass, and the whole batch decoded back to K-c's input); all
+              integer, compared exactly
   5. slice    256x256x3 compress on the card, byte-identical to the plain
               path (device="cpu") and to grok_tpu's stream (REF_SHA256);
+     slice_p1dec  the Part-1 stream decoded on the card, equal to the plain
+              path's decode and to the input
      slice_ht the same with ht=True, and the card's decode of it equal to
               the plain path's and to the input
   6. e2e      3840x2160x3 lossless53 (CompressParams(num_resolutions=6))
@@ -24,6 +28,8 @@ line):
               end-to-end ms, MP/s, bytes; each stream must have grok_tpu's
               length and SHA-256 (REF_SHA256), and every kernel of the path
               must have launched
+     e2e_dec  the three streams decoded like three requests, each image
+              equal to the input; K-i, K-g and K-h must have launched
   7. e2e_ht   3840x2160x3 ht_lossless (the same with ht=True) compressed
               three times, each stream with grok_tpu's length and SHA-256,
               then decoded three times, each image equal to the input;
@@ -57,6 +63,7 @@ REF_SHA256 = {
                        "79cb44cc7426e51a469c80f9274908a7b356066fc835aed2d089309819b7f64f"),
 }
 PART1_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ebcot_symbols", "mq_pack")
+PART1_DEC_KERNELS = ("ebcot_decode", "dwt53_inv_level", "rct_inv_dc_clip")
 HT_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ht_cleanup_enc", "ht_cleanup_dec",
               "dwt53_inv_level", "rct_inv_dc_clip")
 
@@ -107,6 +114,25 @@ def cpu_ms(fn):
     return (time.perf_counter() - t) * 1e3, out
 
 
+def dec_inputs(torch, plan, numbps, npasses, seg_len, buf, idx=None, keep=None, lens=None):
+    """K-i's inputs for codeblocks ``idx`` (all by default) of a K-d output:
+    lanes [7, n] int32, the segments back to back, their starts. ``keep``
+    and ``lens`` cut codeblocks to fewer passes and bytes."""
+    if idx is None:
+        idx = torch.arange(numbps.numel(), device=numbps.device)
+    lens = seg_len[idx] if lens is None else lens
+    keep = npasses[idx] if keep is None else keep
+    lanes = torch.stack([numbps[idx], keep, plan.heights[idx], plan.widths[idx],
+                         plan.orients[idx], plan.styles[idx], lens]).to(torch.int32)
+    ends = torch.cumsum(lens, 0)
+    starts = ends - lens
+    total = int(ends[-1]) if lens.numel() else 0
+    pos = torch.arange(total, device=lens.device)
+    lane = torch.searchsorted(ends, pos, right=True)
+    data = buf[idx[lane], 1 + pos - starts[lane]].contiguous()
+    return lanes.contiguous(), data, starts.contiguous()
+
+
 def _device(torch):
     torch.cuda.set_device(0)
     return torch.device("cuda", 0)
@@ -126,7 +152,7 @@ def main() -> int:
     from grok_tpu_torch.t1 import ebcot_cuda as ec
     from grok_tpu_torch.t1 import ht_cuda as hc
     from grok_tpu_torch.t1.ebcot import lane_numbps
-    from grok_tpu_torch.tile.tile_processor import TileProcessor
+    from grok_tpu_torch.tile.tile_processor import TileProcessor, _repair_pass_rates
 
     dev = _device(torch)
 
@@ -273,7 +299,61 @@ def main() -> int:
         plain_shape=sample, sample_ms=sample_ms_d, valid_records=int(valid.sum()),
         max_valid_records_one_codeblock=int(valid.max()),
         sample_max_valid_records=int(valid[idx].max()))
-    del sym, packed, s_sym
+
+    # K-i: the whole 4K batch's segments back to the coefficients K-c read,
+    # timed on the card; the sample against the plain version on the CPU,
+    # once whole and once cut after a seeded pass at that pass's rate
+    buf, seg_len, rates = packed
+    npasses = (numbps * 3 - 2).clamp(min=0)
+    dec_lanes, dec_data, dec_starts = dec_inputs(torch, plan, numbps, npasses, seg_len, buf)
+    no_segs = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+    dec = ec.ebcot_decode(dec_data, dec_starts, dec_lanes, no_segs, tabs["ctx"], tabs["mq"],
+                          bh, bw)
+    ms_i = cuda_ms(torch, lambda: ec.ebcot_decode(dec_data, dec_starts, dec_lanes, no_segs,
+                                                  tabs["ctx"], tabs["mq"], bh, bw), reps=3)
+    whole_ok = torch.equal(dec, batch)
+    err_i = int((dec.to(torch.int64) - batch).abs().max())
+    del dec
+    rate_np = rates.cpu().numpy().astype(np.int64)
+    np_passes = npasses.cpu().numpy()
+    _repair_pass_rates(rate_np, np_passes)
+    s_np = idx.cpu().numpy()
+    s_passes = np_passes[s_np]
+    cut = rng.integers(1, np.maximum(s_passes, 1) + 1)
+    cut = np.where(s_passes > 0, np.minimum(cut, s_passes), 0)
+    cut_len = np.where(cut > 0, rate_np[s_np, np.maximum(cut - 1, 0)], 0)
+    cut_len = np.minimum(cut_len, seg_len.cpu().numpy()[s_np])
+    i_checks = {}
+    for label, keep, lens in (("whole", s_passes, seg_len.cpu().numpy()[s_np]),
+                              ("cut", cut, cut_len)):
+        s_lanes, s_data, s_starts = dec_inputs(
+            torch, plan, numbps, npasses, seg_len, buf, idx,
+            torch.from_numpy(keep).to(dev), torch.from_numpy(lens).to(dev))
+        s_seg = torch.zeros((len(s_np), 1), dtype=torch.int32, device=dev)
+        k_dec = ec.ebcot_decode(s_data, s_starts, s_lanes, s_seg, tabs["ctx"], tabs["mq"],
+                                bh, bw)
+        p_ms, p_dec = cpu_ms(lambda: ec.ebcot_decode_plain(
+            s_data.cpu(), s_starts.cpu(), s_lanes.cpu(), s_seg.cpu(), tabs["ctx"].cpu(),
+            tabs["mq"].cpu(), bh, bw))
+        i_checks[label] = dict(max_abs_err=int((k_dec.cpu().to(torch.int64) - p_dec).abs().max()),
+                               plain_ms=p_ms, passes=int(keep.sum()), bytes=int(lens.sum()))
+        if label == "whole":
+            err_i = max(err_i, i_checks[label]["max_abs_err"],
+                        int((k_dec.to(torch.int64) - s_batch).abs().max()))
+        else:
+            err_i = max(err_i, i_checks[label]["max_abs_err"])
+    if not whole_ok:
+        raise AssertionError("ebcot_decode of the 4K batch is not the batch")
+    dec_bytes = int(seg_len.sum())
+    samples_i = int((plan.heights * plan.widths).sum())
+    stats["ebcot_decode"] = dict(
+        max_abs_err=err_i, ms=ms_i, plain_ms=i_checks["whole"]["plain_ms"], library_ms=None,
+        bytes=dec_bytes + samples_i * 4 + n * (7 * 4 + 8), ops=int(valid.sum()),
+        shape=f"{n} codeblocks {bh}x{bw}, {samples_i} samples, segments {dec_bytes} B, "
+              f"{int(valid.sum())} decisions (at most {int(valid.max())} in one codeblock)",
+        plain_shape=sample, sample_checks=i_checks,
+        ns_per_decision_longest=ms_i * 1e6 / int(valid.max()))
+    del sym, packed, s_sym, buf, dec_data
 
     # K-e / K-f: full 4K batch on the card, the same sample against the
     # plain versions on the CPU
@@ -376,6 +456,18 @@ def main() -> int:
     if s_gpu != s_cpu or not ref_ok:
         raise AssertionError("256x256 card stream differs from the plain path or grok_tpu's")
 
+    t0 = time.perf_counter()
+    p_gpu = gt.decompress(s_gpu)
+    t1 = time.perf_counter()
+    p_cpu = gt.decompress(s_gpu, device="cpu")
+    t2 = time.perf_counter()
+    p_same = all(np.array_equal(a.data, b.data) and np.array_equal(a.data, small[:, :, c])
+                 for c, (a, b) in enumerate(zip(p_gpu.components, p_cpu.components)))
+    emit({"phase": "slice_p1dec", "image": "256x256x3", "decode_equal": p_same,
+          "gpu_dec_ms": (t1 - t0) * 1e3, "plain_cpu_ms": (t2 - t1) * 1e3})
+    if not p_same:
+        raise AssertionError("256x256 Part-1 card decode differs from the plain path or the input")
+
     ht6 = dict(num_resolutions=6, ht=True)
     t0 = time.perf_counter()
     h_gpu = gt.compress(gt.Image.from_array(small), gt.CompressParams(**ht6))
@@ -399,6 +491,7 @@ def main() -> int:
     # ---- 6. full size, three requests
     gt.reset_launch_counts()
     runs = []
+    p1_streams = []
     for i in range(3):
         stage: dict[str, float] = {}
         img = gt.Image.from_array(arr)
@@ -414,11 +507,35 @@ def main() -> int:
         emit({"phase": "e2e", **runs[-1]})
         if not ref_ok:
             raise AssertionError(f"request {i}: the stream is not grok_tpu's ({len(out)} B)")
+        p1_streams.append(out)
     counts = gt.launch_counts()
     emit({"phase": "e2e_launches", "image": f"{W}x{H}x{NC} lossless53", "requests": 3,
           "launches": counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if any(counts[k] <= 0 for k in PART1_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
+
+    # ---- 6b. the Part-1 decode of those streams, three requests
+    gt.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i, stream in enumerate(p1_streams):
+        stage = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = gt.decompress(stream, stage_ms=stage)
+        torch.cuda.synchronize()
+        e2e = (time.perf_counter() - t0) * 1e3
+        exact = all(np.array_equal(c.data, arr[:, :, k]) for k, c in enumerate(back.components))
+        emit({"phase": "e2e_dec", "request": i, "e2e_ms": e2e,
+              "mp_per_s": W * H / 1e6 / (e2e / 1e3), "exact": exact, "stage_ms": stage})
+        if not exact:
+            raise AssertionError(f"Part-1 decode {i}: not the input")
+    dec_counts = gt.launch_counts()
+    emit({"phase": "e2e_dec_launches", "image": f"{W}x{H}x{NC} lossless53", "requests": 3,
+          "launches": dec_counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if any(dec_counts[k] <= 0 for k in PART1_DEC_KERNELS):
+        raise AssertionError(f"a kernel of the Part-1 decode never launched: {dec_counts}")
+    counts["ebcot_decode"] = dec_counts["ebcot_decode"]
+    del p1_streams
 
     # ---- 7. HT at full size: three encodes, three decodes
     gt.reset_launch_counts()

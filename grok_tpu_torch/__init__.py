@@ -1,12 +1,14 @@
 """grok_tpu_torch — the PyTorch / CUDA port of grok_tpu for NVIDIA Hopper.
 
-Two slices are ported. The Part-1 lossless encode: DC shift + RCT + 5/3
-DWT, codeblock gather, EBCOT context modelling and MQ coding. The HTJ2K
-lossless encode and decode (``ht=True``): the same transform and gather,
-the HT cleanup coder and decoder, codeblock scatter and the inverse 5/3 +
-RCT. Device work runs in hand-written CUDA kernels (``csrc/``); T2 and
-markers run on the host. The package imports torch and numpy only;
-grok_tpu is its reference in the tests, never a dependency.
+Three slices are ported. The Part-1 lossless encode: DC shift + RCT + 5/3
+DWT, codeblock gather, EBCOT context modelling and MQ coding. Its decode:
+EBCOT/MQ decoding of every codeblock style, codeblock scatter, the inverse
+5/3 + RCT, with ``DecompressParams(max_layers=k)`` for a layer-limited
+decode. The HTJ2K lossless encode and decode (``ht=True``): the same
+transform and gather, the HT cleanup coder and decoder. Device work runs
+in hand-written CUDA kernels (``csrc/``); T2 and markers run on the host.
+The package imports torch and numpy only; grok_tpu is its reference in
+the tests, never a dependency.
 
     import grok_tpu_torch as gt
     stream = gt.compress(gt.Image.from_array(arr), gt.CompressParams(ht=True))

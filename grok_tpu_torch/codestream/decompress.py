@@ -1,12 +1,14 @@
-"""Whole-image codestream decoder for the HTJ2K lossless slice; counterpart
-of grok_tpu/codestream/decompress.py (Decoder: main header, tile-part walk,
-_paste_tile :366-399; decompress :403).
+"""Whole-image codestream decoder for the reversible slices, Part-1 (MQ)
+and HTJ2K; counterpart of grok_tpu/codestream/decompress.py (Decoder: main
+header, tile-part walk, _paste_tile :366-399; decompress :403).
 
 Host-side orchestration: the main header, the tile-part index and each
 tile-part header are parsed here; one TileProcessor per tile drives its
-device work, tiles one after another. Streams outside the slice (Part-1 MQ
-codeblocks, 9/7, precincts, SOP/EPH, ROI, POC, packed headers, length
-markers, Part-2 MCT) and non-default DecompressParams are refused by name.
+device work, tiles one after another. ``DecompressParams.max_layers``
+limits the decode to the first quality layers. Streams outside the slices
+(9/7, precincts, SOP/EPH, ROI, POC, packed headers, length markers,
+Part-2 MCT, mixed HT and Part-1 codeblocks) and the other non-default
+DecompressParams are refused by name.
 """
 
 from __future__ import annotations
@@ -26,20 +28,24 @@ from .compress import resolve_device
 from .structs import HeaderInfo, Tcp
 
 
+DECODE_FIELDS = ("max_layers",)  # the DecompressParams fields the port honours
+
+
 def check_params(params: DecompressParams) -> None:
-    """Refuse every non-default DecompressParams field by name."""
+    """Refuse every other non-default DecompressParams field by name."""
     bad = [f.name for f in dataclasses.fields(DecompressParams)
-           if getattr(params, f.name) != f.default]
+           if f.name not in DECODE_FIELDS and getattr(params, f.name) != f.default]
     if bad:
         raise UnsupportedFeatureError(
             f"outside the ported decode slice: DecompressParams {', '.join(bad)}")
 
 
 def check_decodable(tcp: Tcp) -> None:
-    """Refuse coding styles outside the HTJ2K lossless slice by name."""
+    """Refuse coding styles outside the reversible decode slices by name."""
     off = {
-        "Part-1 MQ decode": any(not t.cblk_style & CBLK_HT for t in tcp.tccps),
-        "mixed HT / Part-1 codeblocks": any(t.cblk_style & 0x80 for t in tcp.tccps),
+        "mixed HT / Part-1 codeblocks": (any(t.cblk_style & 0x80 for t in tcp.tccps)
+                                         or len({t.cblk_style & CBLK_HT
+                                                 for t in tcp.tccps}) > 1),
         "9/7 irreversible transform": any(t.irreversible for t in tcp.tccps),
         "precinct sizes": any(t.precinct_exps is not None for t in tcp.tccps),
         "SOP/EPH markers": bool(tcp.csty & 0x06),
@@ -119,11 +125,13 @@ def _paste_tile(img: Image, header: HeaderInfo, tile_index: int, arrays) -> None
 
 def decompress(data, params: DecompressParams | None = None, device=None,
                stage_ms: dict[str, float] | None = None) -> Image:
-    """Decode a raw .j2k HTJ2K codestream into an Image on ``device``
-    (default: the current CUDA device). With ``stage_ms`` (a dict) the
-    device is synchronised between stages and their milliseconds are
-    added there: markers, t2, upload, t1_ht_dec, scatter, inverse, to_host."""
-    check_params(params or DecompressParams())
+    """Decode a raw .j2k Part-1 or HTJ2K codestream into an Image on
+    ``device`` (default: the current CUDA device). With ``stage_ms`` (a
+    dict) the device is synchronised between stages and their milliseconds
+    are added there: markers, t2, upload, t1_dec (Part-1) or t1_ht_dec
+    (HT), scatter, inverse, to_host."""
+    params = params or DecompressParams()
+    check_params(params)
     dev = resolve_device(device, "decompress")
     clock = StageClock(dev, stage_ms)
     data = memoryview(bytes(data))
@@ -143,7 +151,7 @@ def decompress(data, params: DecompressParams | None = None, device=None,
         tcp, body = read_tile_headers(data, header, spans[ti])
         check_decodable(tcp)
         clock.mark("markers")
-        planes = TileProcessor(siz, tcp, ti, dev).decompress(body, clock)
+        planes = TileProcessor(siz, tcp, ti, dev).decompress(body, clock, params.max_layers)
         arrays = [p.cpu().numpy() for p in planes]
         clock.mark("to_host")
         _paste_tile(img, header, ti, arrays)

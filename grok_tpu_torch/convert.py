@@ -1,9 +1,10 @@
 """Carry-over of the codec's "weights": its coding tables and configuration.
 
 A codec has no trained weights; what must agree between grok_tpu and the
-port is its tables (EBCOT zero/sign-coding contexts, the MQ state
-machine, the 5/3 band synthesis norms, the HT coder's CxtVLC, MEL and
-u-code tables) and its parameters. These helpers
+port is its tables (EBCOT zero/sign-coding contexts and the MQ state
+machine, which the Part-1 encoder and decoder kernels both load; the 5/3
+band synthesis norms; the HT coder's CxtVLC, MEL and u-code tables) and
+its parameters. These helpers
 take the reference's values as plain numpy arrays and dicts, so the port
 never imports the reference to use them.
 """

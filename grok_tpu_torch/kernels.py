@@ -81,6 +81,9 @@ KERNELS: dict[str, Kernel] = {
         Kernel("rct_inv_dc_clip", "rct_inv.cu",
                "grok_tpu/ops/jax_pipeline.py:198-220 (K2-inv: rct_inverse, DC shift, clip)",
                (_P, _P, _P, _I64) + (_I32,) * 10 + (_P,)),
+        Kernel("ebcot_decode", "ebcot_dec.cu",
+               "grok_tpu/t1/ebcot_jax.py:760 _build_decoder (K5's decoder)",
+               (_P,) * 7 + (_I32,) * 5 + (_P,)),
     )
 }
 

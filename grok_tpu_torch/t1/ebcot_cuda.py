@@ -1,4 +1,5 @@
-"""Part-1 EBCOT encoder on the GPU: symbol-scan kernel + MQ packer kernel.
+"""Part-1 EBCOT on the GPU: the encoder's symbol-scan kernel + MQ packer
+kernel, and the decoder kernel.
 
 Counterpart of grok_tpu/t1/ebcot_pallas.py. The context-modelling scan
 (K-c ``ebcot_symbols``, csrc/ebcot_symbols.cu, the port of the Pallas
@@ -8,11 +9,16 @@ the host packers ``_pack_symbols``/``_pack_symbols_nat``) drives the MQ and
 raw coders over those records. The encoder's symbol sequence never depends
 on the coder state, so records + contexts reproduce the stream exactly.
 
-Each kernel has its plain torch version in this module
-(``ebcot_symbols_plain``, ``mq_pack_plain``). A wrapper takes the plain
-version only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises. Per-pass distortions are plain tensor ops on whatever
-device holds the records (``pass_dist_from_records``).
+The decoder (K-i ``ebcot_decode``, csrc/ebcot_dec.cu, the port of K5's
+lockstep decoder ``ebcot_jax._build_decoder``) turns codeword segments
+back into coefficients, one thread a codeblock.
+
+Each kernel has its plain torch version (``ebcot_symbols_plain``,
+``mq_pack_plain`` in this module; ``ebcot_decode_plain`` in
+t1/ebcot_dec.py). A wrapper takes the plain version only for tensors on
+the CPU; for CUDA tensors it launches the kernel or raises. Per-pass
+distortions are plain tensor ops on whatever device holds the records
+(``pass_dist_from_records``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..core.errors import UnsupportedFeatureError
 from ..core.timing import StageClock
 from .ebcot import (
     T1EncodeResult,
@@ -31,6 +38,7 @@ from .ebcot import (
     pass_is_raw,
     term_after,
 )
+from .ebcot_dec import LANE_ROWS, ebcot_decode_plain
 from .mq import CTX_MR0, CTX_RL, CTX_UNI, MQEncoder, mq_table
 
 # symbol record bit layout (kernel, plain scan and packers)
@@ -452,6 +460,78 @@ def encode_cblks(coeffs: torch.Tensor, heights, widths, orients,
     return T1EncodeResult(data=buf[:, 1:], raw_data=(buf, 1), lengths=lengths,
                           numbps=numbps, npasses=npasses, pass_rates=rates,
                           pass_dist=dist)
+
+
+# ========================================================= K-i: decode
+NUMBPS_LIMIT = 30  # 3 << 29 plus its refinements is the largest int32 magnitude
+DEC_BLOCK_THREADS = 4  # BLOCK_THREADS of csrc/ebcot_dec.cu
+DEC_SMEM_LIMIT = 48 * 1024  # dynamic shared memory without opting in
+
+
+def ebcot_decode(data: torch.Tensor, starts: torch.Tensor, lanes: torch.Tensor,
+                 seg_lengths: torch.Tensor, ctx_tab: torch.Tensor, mq_tab: torch.Tensor,
+                 bh: int, bw: int) -> torch.Tensor:
+    """Coefficients int32 [n, bh, bw] of a Part-1 codeblock batch.
+
+    data: uint8 [total], the codeblocks' bytes back to back; starts: int64
+    [n]; lanes: int32 [7, n] with rows t1.ebcot_dec.LANE_ROWS (numbps,
+    npasses, height, width, orient, style, length); seg_lengths: int32
+    [n, max_segs >= 1], the merged codeword segment lengths of TERMALL and
+    BYPASS codeblocks; ctx_tab: int32 [198]; mq_tab: int32 [4, 47].
+    Raises UnsupportedFeatureError for numbps > NUMBPS_LIMIT."""
+    n = lanes.shape[1]
+    dev = data.device
+    _check(data, "data", torch.uint8, 1, dev)
+    _check(starts, "starts", torch.int64, 1, dev)
+    _check(lanes, "lanes", torch.int32, 2, dev)
+    _check(seg_lengths, "seg_lengths", torch.int32, 2, dev)
+    _check(ctx_tab, "ctx_tab", torch.int32, 1, dev)
+    _check(mq_tab, "mq_tab", torch.int32, 2, dev)
+    if (lanes.shape != (len(LANE_ROWS), n) or starts.shape != (n,)
+            or seg_lengths.shape[0] != n or seg_lengths.shape[1] < 1
+            or ctx_tab.shape != (198,) or mq_tab.shape != (4, 47)):
+        raise ValueError("lanes must be [7, n], starts [n], seg_lengths [n, >= 1], "
+                         "ctx_tab [198], mq_tab [4, 47]")
+    if n and int(lanes[0].max()) > NUMBPS_LIMIT:
+        raise UnsupportedFeatureError(
+            f"Part-1 decode of more than {NUMBPS_LIMIT} magnitude bit-planes")
+    if dev.type == "cpu":
+        return ebcot_decode_plain(data, starts, lanes, seg_lengths, ctx_tab, mq_tab, bh, bw)
+    if dev.type != "cuda":
+        raise ValueError(f"ebcot_decode: unsupported device {dev}")
+    out = torch.zeros((n, bh, bw), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    hw = lanes[2:4].to(torch.int64)
+    flag_bytes = _round_up(int(((hw[0] + 2) * (hw[1] + 2)).max()), 4)
+    if DEC_BLOCK_THREADS * flag_bytes > DEC_SMEM_LIMIT:
+        raise ValueError("ebcot_decode: codeblocks of at most 4096 samples")
+    if data.numel() == 0:
+        data = torch.zeros(1, dtype=torch.uint8, device=dev)
+    kernels.KERNELS["ebcot_decode"].call(
+        data.data_ptr(), starts.data_ptr(), lanes.data_ptr(), seg_lengths.data_ptr(),
+        ctx_tab.data_ptr(), mq_tab.data_ptr(), out.data_ptr(), n, seg_lengths.shape[1],
+        bh, bw, flag_bytes, kernels.stream_ptr(dev))
+    return out
+
+
+def decode_cblks(data: torch.Tensor, starts, lanes, seg_lengths, bh: int, bw: int,
+                 clock: StageClock | None = None):
+    """Decode a Part-1 codeblock batch on the device holding ``data``
+    (counterpart of ebcot_np/ebcot_jax ``decode_cblks``): (coefficients
+    int32 [n, bh, bw], planes_decoded [n]). ``starts``, ``lanes`` and
+    ``seg_lengths`` as for ``ebcot_decode``, in any integer type; the stage
+    is t1_dec."""
+    clock = clock or StageClock(data.device, None)
+    dev = data.device
+    as32 = lambda a: torch.as_tensor(a, device=dev).to(torch.int32).contiguous()  # noqa: E731
+    lanes = as32(lanes)
+    tabs = device_tables(dev)
+    out = ebcot_decode(data.contiguous(), torch.as_tensor(starts, device=dev).to(torch.int64),
+                       lanes, as32(seg_lengths), tabs["ctx"], tabs["mq"], bh, bw)
+    clock.mark("t1_dec")
+    planes = torch.minimum((lanes[1] + 2) // 3, lanes[0])
+    return out, planes
 
 
 _TABLES: dict[str, dict[str, torch.Tensor]] = {}

@@ -219,3 +219,155 @@ class MQEncoder:
         self.raw_used = torch.where(mask, 0, self.raw_used)
         self.raw_tmp = torch.where(mask, 0, self.raw_tmp)
         return lens
+
+
+def packed_transitions(table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The state machine over packed context values v = state << 1 | mps:
+    Qe of v, v after an MPS renormalisation (NMPS) and v after an LPS
+    (NLPS, with the MPS sense switched where SWITCH says); int64 [94]."""
+    t = table.to(torch.int64)
+    qe, nmps, nlps, sw = t[0], t[1], t[2], t[3]
+    st = torch.arange(2 * qe.numel(), device=t.device) >> 1
+    mps = torch.arange(2 * qe.numel(), device=t.device) & 1
+    return qe[st], (nmps[st] << 1) | mps, (nlps[st] << 1) | (mps ^ sw[st])
+
+
+class MQDecoder:
+    """N independent MQ decoders advancing in lockstep; counterpart of
+    grok_tpu/t1/mq_np.py MQDecoder (T.800 C.3).
+
+    Lane i owns the bytes ``data[starts[i] : starts[i] + totals[i]]`` of
+    one flat uint8 buffer and decodes the segment of ``lengths[i]`` bytes
+    at its start. Reads past the current segment's end (or past the
+    lane's bytes) give 0xFF, as in the reference. Each context holds
+    ``state << 1 | mps`` in one int64; registers are int64 lanes with C
+    masked to 32 bits where the reference masks it."""
+
+    def __init__(self, data: torch.Tensor, starts: torch.Tensor, totals: torch.Tensor,
+                 lengths: torch.Tensor, table: torch.Tensor):
+        dev = data.device
+        self.n = n = starts.numel()
+        self.data = data if data.numel() else torch.full((1,), 0xFF, dtype=torch.uint8,
+                                                         device=dev)
+        self.starts = starts.to(torch.int64)
+        self.totals = totals.to(torch.int64)
+        self.qe_v, self.nm_v, self.nl_v = packed_transitions(table.to(dev))
+        self.lanes19 = torch.arange(n, device=dev) * NUM_CTX
+        self._init_cx = (INIT_STATES << 1).to(dev)
+        self.cx = self._init_cx.repeat(n, 1)
+        zero = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.base = zero.clone()
+        self.end = lengths.to(torch.int64).clone()
+        self.bp, self.c, self.ct, self.a = zero.clone(), zero.clone(), zero.clone(), zero.clone()
+        self.rbase, self.rend, self.rpos = zero.clone(), zero.clone(), zero.clone()
+        self.rtmp, self.rbits = zero.clone(), zero.clone()
+        self.rprev_ff = torch.zeros(n, dtype=torch.bool, device=dev)
+        self._prime(torch.ones(n, dtype=torch.bool, device=dev))
+
+    def _byte(self, base: torch.Tensor, idx: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+        """Byte idx of the segment at base (end bytes long), 0xFF past it."""
+        pos = base + idx
+        ok = (idx < end) & (pos < self.totals)
+        flat = (self.starts + pos).clamp(0, self.data.numel() - 1)
+        return torch.where(ok, self.data[flat].to(torch.int64), 0xFF)
+
+    def _bytein(self, mask: torch.Tensor) -> None:
+        b = self._byte(self.base, self.bp, self.end)
+        b1 = self._byte(self.base, self.bp + 1, self.end)
+        is_ff = b == 0xFF
+        marker = is_ff & (b1 > 0x8F)  # a marker (or the end): feed 1 bits
+        add = torch.where(marker, 0xFF00, b1 << torch.where(is_ff, 9, 8))
+        self.c = torch.where(mask, self.c + add, self.c)
+        self.ct = torch.where(mask, torch.where(is_ff & ~marker, 7, 8), self.ct)
+        self.bp = torch.where(mask & ~marker, self.bp + 1, self.bp)
+
+    def _prime(self, mask: torch.Tensor) -> None:
+        """INITDEC on the current segment of the masked lanes."""
+        self.bp = torch.where(mask, 0, self.bp)
+        b0 = self._byte(self.base, torch.zeros_like(self.bp), self.end)
+        self.c = torch.where(mask, b0 << 16, self.c)
+        self._bytein(mask)
+        self.c = torch.where(mask, (self.c << 7) & 0xFFFFFFFF, self.c)
+        self.ct = torch.where(mask, self.ct - 7, self.ct)
+        self.a = torch.where(mask, 0x8000, self.a)
+
+    def reset_ctx(self, mask: torch.Tensor) -> None:
+        """Per-lane context reset (RESET codeblock style)."""
+        self.cx = torch.where(mask[:, None], self._init_cx, self.cx)
+
+    def init_registers(self, mask: torch.Tensor, base: torch.Tensor,
+                       seg_len: torch.Tensor) -> None:
+        """Re-prime the masked lanes on a new codeword segment at byte
+        ``base`` of their data; the context states persist."""
+        if not bool(mask.any()):
+            return
+        self.base = torch.where(mask, base, self.base)
+        self.end = torch.where(mask, seg_len, self.end)
+        self._prime(mask)
+
+    def raw_init(self, mask: torch.Tensor, base: torch.Tensor, seg_len: torch.Tensor) -> None:
+        """Start a raw (BYPASS) segment at byte ``base`` for the masked lanes."""
+        self.rbase = torch.where(mask, base, self.rbase)
+        self.rend = torch.where(mask, seg_len, self.rend)
+        self.rpos = torch.where(mask, 0, self.rpos)
+        self.rtmp = torch.where(mask, 0, self.rtmp)
+        self.rbits = torch.where(mask, 0, self.rbits)
+        self.rprev_ff = self.rprev_ff & ~mask
+
+    def raw_bit(self, mask: torch.Tensor) -> torch.Tensor:
+        """One raw bit per masked lane, MSB first; a byte after 0xFF gives
+        7 bits, and 0xFF is read past the segment's end."""
+        need = mask & (self.rbits == 0)
+        if bool(need.any()):
+            b = self._byte(self.rbase, self.rpos, self.rend)
+            self.rpos = torch.where(need, self.rpos + 1, self.rpos)
+            self.rbits = torch.where(need, torch.where(self.rprev_ff, 7, 8), self.rbits)
+            self.rprev_ff = torch.where(need, b == 0xFF, self.rprev_ff)
+            self.rtmp = torch.where(need, b, self.rtmp)
+        self.rbits = torch.where(mask, self.rbits - 1, self.rbits)
+        return torch.where(mask, (self.rtmp >> self.rbits.clamp(min=0)) & 1, 0)
+
+    def _renorm(self, mask: torch.Tensor) -> None:
+        """Shift A up to >= 0x8000, reading a byte each time CT is 0 before
+        a shift; done in CT-bounded runs (at most three, one when no lane
+        runs out of bits)."""
+        _, e = torch.frexp(self.a.to(torch.float32))
+        left = torch.where(mask, 16 - e.to(torch.int64), 0)
+        if not bool((left > self.ct).any()):
+            self.a = self.a << left
+            self.c = (self.c << left) & 0xFFFFFFFF
+            self.ct = self.ct - left
+            return
+        act = mask
+        while True:
+            refill = act & (self.ct == 0)
+            if bool(refill.any()):
+                self._bytein(refill)
+            s = torch.where(act, torch.minimum(left, self.ct), 0)
+            self.a = self.a << s
+            self.c = (self.c << s) & 0xFFFFFFFF
+            self.ct = self.ct - s
+            left = left - s
+            act = left > 0
+            if not bool(act.any()):
+                return
+
+    def decode(self, ctx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Decode one decision per masked lane in context ctx ([N] int64);
+        returns the bits, 0 on unmasked lanes."""
+        if not bool(mask.any()):
+            return torch.zeros(self.n, dtype=torch.int64, device=mask.device)
+        flat = self.cx.view(-1)
+        idx = self.lanes19 + ctx
+        v = flat[idx]
+        qe = self.qe_v[v]
+        a = self.a - qe
+        lps = ((self.c >> 16) & 0xFFFF) < qe
+        low = a < qe
+        renorm = mask & (lps | (a < 0x8000))
+        lpsym = renorm & (lps != low)  # the decoded bit is the LPS
+        flat[idx] = torch.where(renorm, torch.where(lpsym, self.nl_v[v], self.nm_v[v]), v)
+        self.c = torch.where(mask & ~lps, self.c - (qe << 16), self.c)
+        self.a = torch.where(mask, torch.where(lps, qe, a), self.a)
+        self._renorm(renorm)
+        return torch.where(mask, (v & 1) ^ lpsym.to(torch.int64), 0)

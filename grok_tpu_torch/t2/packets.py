@@ -103,10 +103,15 @@ class CblkEnc:
 
 @dataclass
 class CblkDec:
-    """Decoder-side codeblock T2 record."""
+    """Decoder-side codeblock T2 record. ``segments`` holds the kept
+    contribution pieces, ``seg_passes`` the passes of each; ``npasses``
+    counts the kept passes and ``passes_seen`` every pass the headers
+    announced, dropped layers included (it places the segment splits)."""
 
     segments: list[bytes] = field(default_factory=list)
+    seg_passes: list[int] = field(default_factory=list)
     npasses: int = 0
+    passes_seen: int = 0
     numbps: int = 0  # set on first inclusion from the imsb tree
     lblock: int = 3
     included: bool = False
@@ -201,10 +206,13 @@ def encode_packet(prc_ctxs: list[PrecinctCtx], layer: int) -> bytes:
     return bio.getvalue() + bytes(body)
 
 
-def decode_packet(data, pos: int, prc_ctxs: list[PrecinctCtx], layer: int) -> int:
+def decode_packet(data, pos: int, prc_ctxs: list[PrecinctCtx], layer: int,
+                  drop: bool = False) -> int:
     """Parse one packet starting at data[pos]; returns the position after
     it. Each included codeblock's contribution is appended to its
-    segments."""
+    segments, unless ``drop``: then the packet (of a layer the caller does
+    not want) is parsed only to keep the stream position and the header
+    state, and its bodies are skipped."""
     n = len(data)
     bio = BitReader(data, pos)
     contributions: list[tuple[CblkDec, int, int]] = []  # (cblk, npasses, nbytes)
@@ -230,17 +238,42 @@ def decode_packet(data, pos: int, prc_ctxs: list[PrecinctCtx], layer: int) -> in
                     cb.lblock += 1
                     if cb.lblock > 32:
                         raise CorruptPacketError("runaway lblock")
-                if cb.npasses + npl > 165:
+                if cb.passes_seen + npl > 165:
                     raise CorruptPacketError("too many coding passes")
-                for np_s in _segment_splits(cb.style, cb.npasses, npl):
+                for np_s in _segment_splits(cb.style, cb.passes_seen, npl):
                     contributions.append(
                         (cb, np_s, bio.read_bits(cb.lblock + _floor_log2(np_s))))
+                cb.passes_seen += npl
     bio.align()
     pos = bio.byte_pos
     for cb, npl, nbytes in contributions:
         if pos + nbytes > n:
             raise CorruptPacketError("packet body truncated")
-        cb.segments.append(bytes(data[pos:pos + nbytes]))
-        cb.npasses += npl
+        if not drop:
+            cb.segments.append(bytes(data[pos:pos + nbytes]))
+            cb.seg_passes.append(npl)
+            cb.npasses += npl
         pos += nbytes
     return pos
+
+
+def merge_segments(style: int, piece_bytes: list[int], piece_passes: list[int]) -> list[int]:
+    """Byte lengths of whole codeword segments from a codeblock's
+    contribution pieces (bytes and passes of each, in order): a layer
+    boundary may split a TERMALL or BYPASS segment into pieces. The
+    reference's object path (grok_tpu/tile/tile_processor.py:1218-1238),
+    trailing bytes of an unfinished segment included."""
+    targets = _segment_splits(style, 0, sum(piece_passes))
+    merged: list[int] = []
+    acc_b = acc_p = ti = 0
+    for nb, np_c in zip(piece_bytes, piece_passes):
+        acc_b += nb
+        acc_p += np_c
+        while ti < len(targets) and acc_p >= targets[ti]:
+            acc_p -= targets[ti]
+            merged.append(acc_b)
+            acc_b = 0
+            ti += 1
+    if acc_b:
+        merged.append(acc_b)
+    return merged

@@ -1,17 +1,20 @@
 """Per-tile pipelines. Encode: transform -> codeblock gather -> T1 -> T2;
-decode (HT): T2 -> T1 -> codeblock scatter -> inverse transform.
+decode (Part-1 and HT): T2 -> T1 -> codeblock scatter -> inverse
+transform.
 
 Counterpart of grok_tpu/tile/tile_processor.py: the device branch of
 compress (:249-279), _entropy_and_t2 (:400) with its HT branch
 (:492-538) and the Python _emit_packets (:655) for one quality layer
 without rate control (every pass of every codeblock goes into the single
 layer); and decompress (:1303) over the object T2 path
-_decompress_t1_objects (:1154) with the device inverse chain (:1422-1442).
+_decompress_t1_objects (:1154, layer limits and the merge of segment
+pieces included) with the device inverse chain (:1422-1442).
 
 The coefficients stay on the device from the transform through the
 gather and the T1 kernels; only the codeblock bytes, lengths, pass rates
 and plane counts come back to the host, for T2. On decode the segments
-go up once and the decoded samples come back once.
+go up once (Part-1: back to back in one buffer; HT: padded rows) and the
+decoded samples come back once.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ from ..core.params import CBLK_HT
 from ..core.rect import Rect, ceil_div
 from ..core.timing import StageClock
 from ..ops.transform import forward_transform, inverse_transform
-from ..t1 import ht_cuda
-from ..t1.ebcot_cuda import encode_cblks
-from ..t2.packets import CblkDec, CblkEnc, PrecinctCtx, decode_packet, encode_packet
+from ..t1 import ebcot_cuda, ht_cuda
+from ..t1.ebcot_dec import SEGMENTED
+from ..t2.packets import (CblkDec, CblkEnc, PrecinctCtx, decode_packet, encode_packet,
+                          merge_segments)
 from ..t2.progression import packet_order
 from .geometry import BAND_LL, TileCompGeom, cached_tile_comp_geometry
 
@@ -187,7 +191,7 @@ class TileProcessor:
         if use_ht:
             res = ht_cuda.encode_cblks(batch, plan.heights, plan.widths, clock=clock)
         else:
-            res = encode_cblks(batch, plan.heights, plan.widths, plan.orients,
+            res = ebcot_cuda.encode_cblks(batch, plan.heights, plan.widths, plan.orients,
                                styles=plan.styles, clock=clock,
                                want_dist=self._needs_pass_dist())
         maxlen = int(res.lengths.max())
@@ -239,15 +243,19 @@ class TileProcessor:
         return b"".join(parts)
 
     # ------------------------------------------------------------ decode
-    def decompress(self, body, clock: StageClock | None = None) -> list[torch.Tensor]:
-        """Decode an HT tile body (its packets) into per-component int32
-        sample planes on the device."""
+    def decompress(self, body, clock: StageClock | None = None,
+                   max_layers: int = 0) -> list[torch.Tensor]:
+        """Decode a tile body (its packets) into per-component int32 sample
+        planes on the device. ``max_layers`` > 0 keeps the passes of the
+        first that many quality layers only (the reference's
+        _decompress_t1_objects, :1176-1198: packets of later layers are
+        parsed and dropped, and reading stops after the last wanted one)."""
         clock = clock or StageClock(self.device, None)
         siz, tcp = self.siz, self.tcp
         for c in range(siz.num_comps):
             apply_band_quant(self.geoms[c], tcp.tccps[c])
 
-        # ---- T2: parse every packet (the object path of the reference)
+        # ---- T2: parse the packets (the object path of the reference)
         prc_ctx_map: dict[tuple[int, int, int, int], PrecinctCtx] = {}
         for c, g in enumerate(self.geoms):
             style = tcp.tccps[c].cblk_style & 0x7F
@@ -257,18 +265,26 @@ class TileProcessor:
                         ctx = PrecinctCtx(band, prc)
                         ctx.cblks = [CblkDec(style=style) for _ in prc.cblks]
                         prc_ctx_map[(c, res.r, bi, pi)] = ctx
+        def wanted(pk) -> bool:
+            return not max_layers or pk.layer < max_layers
+
+        order = list(packet_order(siz, tcp, self.geoms, self.tile_rect))
+        last = max((i for i, pk in enumerate(order) if wanted(pk)), default=-1)
         pos = 0
-        for pk in packet_order(siz, tcp, self.geoms, self.tile_rect):
+        for pk in order[:last + 1]:
             if pos >= len(body):
                 break  # truncated stream: the remaining packets are empty
             res = self.geoms[pk.comp].resolutions[pk.res]
             pos = decode_packet(body, pos, [prc_ctx_map[(pk.comp, pk.res, bi, pk.prec)]
-                                            for bi in range(len(res.bands))], pk.layer)
+                                            for bi in range(len(res.bands))], pk.layer,
+                                drop=not wanted(pk))
 
         # ---- the codeblocks that carry data; the others decode to zeros
+        use_ht = bool(tcp.tccps[0].cblk_style & CBLK_HT)
         offsets = np.cumsum([0] + [g.rect.area for g in self.geoms])
         segs: list[bytes] = []
-        cols: list[tuple[int, int, int, int]] = []
+        cols: list[tuple[int, ...]] = []
+        merged: list[list[int]] = []
         for (c, r, bi, pi), ctx in prc_ctx_map.items():
             g = self.geoms[c]
             band = g.resolutions[r].bands[bi]
@@ -276,30 +292,47 @@ class TileProcessor:
             for cg, cb in zip(ctx.prc.cblks, ctx.cblks):
                 if cb.npasses == 0 or cg.rect.empty():
                     continue
-                if cb.npasses > 1 or cb.numbps > 1:
+                if use_ht and (cb.npasses > 1 or cb.numbps > 1):
                     raise UnsupportedFeatureError(
                         "outside the ported slices: HT refinement passes")
                 y0 = cg.rect.y0 - band.rect.y0 + oy
                 x0 = cg.rect.x0 - band.rect.x0 + ox
-                segs.append(b"".join(cb.segments))
+                seg = b"".join(cb.segments)
+                segs.append(seg)
                 cols.append((int(offsets[c]) + y0 * g.rect.width + x0, g.rect.width,
-                             cg.rect.height, cg.rect.width))
+                             cg.rect.height, cg.rect.width, cb.numbps, cb.npasses,
+                             band.orient, cb.style & 0x3F, len(seg)))
+                merged.append(merge_segments(cb.style, [len(p) for p in cb.segments],
+                                             cb.seg_passes)
+                              if cb.style & SEGMENTED else [])
         clock.mark("t2")
 
         flat = torch.zeros(int(offsets[-1]) + 1, dtype=torch.int32, device=self.device)
         if segs:
-            n = len(segs)
-            data = np.zeros((n, max(max(len(s) for s in segs), 2)), dtype=np.uint8)
-            for i, s in enumerate(segs):
-                data[i, :len(s)] = np.frombuffer(s, dtype=np.uint8)
-            t = torch.tensor(cols, dtype=torch.int64).T
+            t = np.array(cols, dtype=np.int64).T
             bh, bw = int(t[2].max()), int(t[3].max())
-            base, stride, heights, widths = (v.to(self.device) for v in t)
-            lens = torch.tensor([len(s) for s in segs], dtype=torch.int64).to(self.device)
-            data_t = torch.from_numpy(data).to(self.device)
-            clock.mark("upload")
-            out = ht_cuda.decode_cleanup_batch(data_t, lens, heights, widths, bh, bw,
-                                               clock=clock)
+            base, stride, heights, widths = (torch.from_numpy(v).to(self.device) for v in t[:4])
+            if use_ht:
+                data = np.zeros((len(segs), max(max(len(s) for s in segs), 2)), dtype=np.uint8)
+                for i, s in enumerate(segs):
+                    data[i, :len(s)] = np.frombuffer(s, dtype=np.uint8)
+                data_t = torch.from_numpy(data).to(self.device)
+                lens = torch.from_numpy(t[8]).to(self.device)
+                clock.mark("upload")
+                out = ht_cuda.decode_cleanup_batch(data_t, lens, heights, widths, bh, bw,
+                                                   clock=clock)
+            else:
+                seg_arr = np.zeros((len(segs), max(max(map(len, merged)), 1)), dtype=np.int32)
+                for i, m in enumerate(merged):
+                    seg_arr[i, :len(m)] = m
+                lanes = t[[4, 5, 2, 3, 6, 7, 8]].astype(np.int32)  # t1.ebcot_dec.LANE_ROWS
+                data = np.frombuffer(b"".join(segs) or b"\0", dtype=np.uint8)
+                data_t, starts, lanes_t, seg_t = (
+                    torch.from_numpy(a.copy()).to(self.device)
+                    for a in (data, np.cumsum(t[8]) - t[8], lanes, seg_arr))
+                clock.mark("upload")
+                out, _ = ebcot_cuda.decode_cblks(data_t, starts, lanes_t, seg_t, bh, bw,
+                                                 clock=clock)
             idx, inside = _block_index(base, stride, heights, widths, bh, bw)
             flat[torch.where(inside, idx, flat.numel() - 1)] = out
         planes = [flat[int(offsets[c]):int(offsets[c + 1])].view(g.rect.height, g.rect.width)

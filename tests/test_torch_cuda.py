@@ -4,7 +4,7 @@ present; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-All eight kernels are integer-only, so every comparison is exact."""
+All nine kernels are integer-only, so every comparison is exact."""
 
 import numpy as np
 import pytest
@@ -353,3 +353,110 @@ def test_ht_roundtrip_on_card_equals_plain_path(cuda):
     for name in ("dc_rct_fwd", "dwt53_fwd_level", "ht_cleanup_enc", "ht_cleanup_dec",
                  "dwt53_inv_level", "rct_inv_dc_clip"):
         assert counts[name] > 0, counts
+
+
+# ------------------------------------------------------- K-i ebcot_decode
+def _decode_case(dev, n, bh, bw, bits, style, seed, cut):
+    """K-i and its plain version on a seeded batch that the port's encoder
+    wrote on the card; ``cut`` stops each codeblock at a seeded pass and
+    splits its segments at a seeded layer boundary. Returns the batch and
+    the card's result, checked equal to the plain one."""
+    from test_torch_part1_decode import kernel_inputs
+
+    rng = np.random.default_rng(seed)
+    coeffs = np.clip(rng.laplace(size=(n, bh, bw)) * (1 << bits) / 12,
+                     -(1 << bits) + 1, (1 << bits) - 1).astype(np.int32)
+    coeffs[0, 0, 0] = (1 << bits) - 1  # numbps reaches bits
+    hs, ws = rng.integers(1, bh + 1, n), rng.integers(1, bw + 1, n)
+    hs[0], ws[0] = bh, bw
+    ors, styles = rng.integers(0, 4, n), np.full(n, style)
+    res = ec.encode_cblks(torch.from_numpy(coeffs).to(dev), hs, ws, ors, styles=styles)
+    npasses = res.npasses.cpu().numpy()
+    cutv = rng.integers(0, npasses + 1) if cut else None
+    split = rng.integers(0, npasses + 1) if cut else None
+    flat, starts, lens, keep, seg_arr = kernel_inputs(
+        res.data.cpu().numpy(), res.lengths.cpu().numpy(), npasses,
+        res.pass_rates.cpu().numpy(), styles, cutv, split)
+    lanes = np.stack([res.numbps.cpu().numpy(), keep, hs, ws, ors, styles, lens])
+    args = [torch.from_numpy(flat), torch.from_numpy(starts.astype(np.int64)),
+            torch.from_numpy(lanes.astype(np.int32)), torch.from_numpy(seg_arr)]
+    tabs = ec.device_tables(dev)
+    before = _launches("ebcot_decode")
+    got = ec.ebcot_decode(*(a.to(dev) for a in args), tabs["ctx"], tabs["mq"], bh, bw)
+    torch.cuda.synchronize()
+    assert _launches("ebcot_decode") == before + 1
+    want = ec.ebcot_decode_plain(*args, tabs["ctx"].cpu(), tabs["mq"].cpu(), bh, bw)
+    assert torch.equal(got.cpu(), want)
+    inside = (np.arange(bh)[:, None] < hs[:, None, None]) & (np.arange(bw) < ws[:, None, None])
+    return np.where(inside, coeffs, 0), got.cpu().numpy()
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+@pytest.mark.parametrize("style", [0, 0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x3F])
+def test_ebcot_decode_kernel_equals_plain(cuda, style, cut):
+    """Every style on partial stripes (13 rows), whole and stopped early
+    with segments merged across a layer boundary."""
+    want, got = _decode_case(cuda, 8, 13, 16, 10, style, style + 40 * cut, cut)
+    if not cut:
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("bh,bw,bits,style", [(3, 8, 12, 0x3F), (10, 6, 12, 0x3F),
+                                              (64, 64, 19, 0), (64, 64, 20, 0x3F),
+                                              (4, 1024, 6, 0x3F), (1024, 4, 6, 0x3F)])
+def test_ebcot_decode_kernel_shapes(cuda, bh, bw, bits, style):
+    """Short and narrow codeblocks, 64x64 at 19-20 planes, and the widest
+    and tallest codeblocks (the largest flag planes in shared memory)."""
+    want, got = _decode_case(cuda, 2, bh, bw, bits, style, bh * bw + bits, False)
+    assert np.array_equal(got, want)
+    _decode_case(cuda, 2, bh, bw, bits, style, bh + bw + bits, True)
+
+
+def test_ebcot_decode_kernel_refuses_bad_inputs(cuda):
+    tabs = ec.device_tables(cuda)
+    data = torch.zeros(4, dtype=torch.uint8, device=cuda)
+    starts = torch.zeros(1, dtype=torch.int64, device=cuda)
+    seg = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+
+    def lanes(**kw):
+        row = dict(numbps=3, npasses=7, height=8, width=8, orient=0, style=0, length=4)
+        row.update(kw)
+        return torch.tensor(list(row.values()), dtype=torch.int32, device=cuda)[:, None]
+
+    before = _launches("ebcot_decode")
+    with pytest.raises(gt.UnsupportedFeatureError):
+        ec.ebcot_decode(data, starts, lanes(numbps=31), seg, tabs["ctx"], tabs["mq"], 8, 8)
+    with pytest.raises(ValueError):  # over 4096 samples: flag planes too large
+        ec.ebcot_decode(data, starts, lanes(height=100, width=120), seg, tabs["ctx"],
+                        tabs["mq"], 100, 120)
+    with pytest.raises(ValueError):
+        ec.ebcot_decode(data, starts, lanes().to(torch.int64), seg, tabs["ctx"], tabs["mq"],
+                        8, 8)
+    with pytest.raises(ValueError):
+        ec.ebcot_decode(data, starts, lanes()[:6].contiguous(), seg, tabs["ctx"], tabs["mq"],
+                        8, 8)
+    with pytest.raises(ValueError):
+        ec.ebcot_decode(data.cpu(), starts, lanes(), seg, tabs["ctx"], tabs["mq"], 8, 8)
+    assert _launches("ebcot_decode") == before
+
+
+def test_part1_layers_on_card_equal_plain_path(cuda):
+    """grok_tpu's 0x3F three-layer stream, decoded on the card and with the
+    plain versions at every max_layers."""
+    import grok_tpu as gk
+
+    arr = np.random.default_rng(6).integers(0, 256, size=(40, 36, 3)).astype(np.int32)
+    stream = gk.compress(gk.Image.from_array(arr), gk.CompressParams(
+        num_resolutions=3, num_layers=3, layer_rates=[20, 5, 1], cblk_style=0x3F,
+        progression=gk.ProgressionOrder.RLCP))
+    for ml in range(4):
+        gt.reset_launch_counts()
+        card = gt.decompress(stream, gt.DecompressParams(max_layers=ml))
+        counts = gt.launch_counts()
+        plain = gt.decompress(stream, gt.DecompressParams(max_layers=ml), device="cpu")
+        for a, b in zip(card.components, plain.components):
+            assert np.array_equal(a.data, b.data)
+        if ml in (0, 3):
+            assert all(np.array_equal(c.data, arr[:, :, k]) for k, c in enumerate(card.components))
+        for name in ("ebcot_decode", "dwt53_inv_level", "rct_inv_dc_clip"):
+            assert counts[name] > 0, counts

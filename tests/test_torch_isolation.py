@@ -17,8 +17,9 @@ import grok_tpu_torch as gt
 img = gt.Image.from_array(np.arange(96, dtype=np.int32).reshape(8, 4, 3) % 256, prec=8)
 out = gt.compress(img, gt.CompressParams(num_resolutions=2), device="cpu")
 ht = gt.compress(img, gt.CompressParams(num_resolutions=2, ht=True), device="cpu")
-back = gt.decompress(ht, device="cpu")
-same = all(np.array_equal(c.data, img.components[i].data) for i, c in enumerate(back.components))
+same = all(np.array_equal(c.data, img.components[i].data)
+           for s in (ht, out)
+           for i, c in enumerate(gt.decompress(s, device="cpu").components))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "grok_tpu" or m.startswith("grok_tpu."))
 print(json.dumps({"bytes": len(out), "ends": out[-2:].hex(), "bad": bad, "roundtrip": same}))
@@ -26,7 +27,7 @@ print(json.dumps({"bytes": len(out), "ends": out[-2:].hex(), "bad": bad, "roundt
 
 
 def test_compress_loads_no_jax_and_no_grok_tpu():
-    """compress (both slices) and decompress, in a fresh interpreter."""
+    """compress and decompress (Part-1 and HT), in a fresh interpreter."""
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
