@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive grok_tpu_torch's lossless paths on one CUDA card: the Part-1
-encode and decode, and the HTJ2K encode and decode.
+"""Drive grok_tpu_torch on one CUDA card: the Part-1 and HTJ2K encode and
+decode, lossless (5/3 + RCT) and lossy (9/7 + ICT).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -10,19 +10,23 @@ line):
   2. build    nvcc of every kernel source, in parallel, with build seconds
   3. kernels  every kernel of the paths and the TPU kernel it replaces
   4. check    each kernel against its plain version on inputs from the
-              3840x2160x3 image: K-a, K-b, K-g and K-h on the whole image
-              (plain versions on the card), K-c, K-d, K-e, K-f and K-i on a
-              seeded sample of codeblocks from every band type (plain
-              versions on the CPU; K-e, K-f and K-i timed on the whole
-              batch; K-i's sample once whole and once cut after a seeded
-              pass, and the whole batch decoded back to K-c's input); all
-              integer, compared exactly
+              3840x2160x3 image: K-a, K-b, K-g and K-h, and K-j, K-k, K-l,
+              K-m, K-n and K-o on the whole image (plain versions on the
+              card; the 9/7 kernels compared on their float32 bits), K-c,
+              K-d, K-e, K-f and K-i on a seeded sample of codeblocks from
+              every band type (plain versions on the CPU; K-e, K-f and K-i
+              timed on the whole batch; K-i's sample once whole and once cut
+              after a seeded pass, and the whole batch decoded back to K-c's
+              input); all compared exactly
   5. slice    256x256x3 compress on the card, byte-identical to the plain
               path (device="cpu") and to grok_tpu's stream (REF_SHA256);
      slice_p1dec  the Part-1 stream decoded on the card, equal to the plain
               path's decode and to the input
      slice_ht the same with ht=True, and the card's decode of it equal to
               the plain path's and to the input
+     slice_97 the same with irreversible=True (9/7 + ICT): the card stream
+              equal to the plain path's and grok_tpu's, its card decode
+              equal to the plain path's and to grok_tpu's decode (REF_MD5)
   6. e2e      3840x2160x3 lossless53 (CompressParams(num_resolutions=6))
               compressed three times like three requests: per-stage ms,
               end-to-end ms, MP/s, bytes; each stream must have grok_tpu's
@@ -34,6 +38,16 @@ line):
               three times, each stream with grok_tpu's length and SHA-256,
               then decoded three times, each image equal to the input;
               every kernel of the path must have launched
+  8. e2e_97   3840x2160x3 lossy97 without a rate target (irreversible=True,
+              one layer holding every pass) compressed three times and
+              decoded three times: each stream with grok_tpu's length and
+              SHA-256, each decode with the digest of grok_tpu's decode;
+              K-j, K-k, K-l, K-c, K-d, K-i, K-m, K-n and K-o must launch
+  9. truncated  a 40x40x3 stream with 24x24 tiles, Part-1 and HT, cut to
+              10-99% of its length: the card's planes equal the plain path's
+ 10. corpus   every .j2k of tests/corpus/streams decoded on the card with
+              the manifest's decode parameters: identical to grok_tpu's
+              decode (CORPUS_REF_MD5), or refused by name; none may differ
 Then the kernel summary line, the nvidia-smi line and the result line.
 """
 
@@ -49,6 +63,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 33.5e12  # H100 SXM peak INT32 rate, NVIDIA H100 white paper
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 W, H, NC = 3840, 2160, 3
 # (bytes, SHA-256) of grok_tpu.compress on natural_image at num_resolutions=6
 # (tests/test_torch_chip_digest.py holds the reference to these constants)
@@ -61,11 +76,126 @@ REF_SHA256 = {
                      "981b10cd866a02d916f23f83803eabed0a674dbecef23ee88ff70b29c624762e"),
     "ht 2160x3840x3": (19715221,
                        "79cb44cc7426e51a469c80f9274908a7b356066fc835aed2d089309819b7f64f"),
+    # and under "97 ...", with P97 (irreversible=True)
+    "97 256x256x3": (84562, "8440126c3d3c48c84b37bcfe86f3217c295caad4c82147886af8281b5adc55ca"),
+    "97 2160x3840x3": (10616803,
+                       "9e62acf19ebb02a2c45bd96aa6bc77bbdbac2ae0276585dd9314f9756a2c5e37"),
 }
 PART1_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ebcot_symbols", "mq_pack")
 PART1_DEC_KERNELS = ("ebcot_decode", "dwt53_inv_level", "rct_inv_dc_clip")
 HT_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ht_cleanup_enc", "ht_cleanup_dec",
               "dwt53_inv_level", "rct_inv_dc_clip")
+K97_KERNELS = ("dc_ict_fwd", "dwt97_fwd_level", "quant_deadzone", "ebcot_symbols", "mq_pack",
+               "ebcot_decode", "dequant_midbin", "dwt97_inv_level", "ict_inv_dc_round_clip")
+P97 = dict(num_resolutions=6, irreversible=True)
+# md5 of grok_tpu.decompress's planes (golden_md5) of the "97 ..." streams
+# above; tests/test_torch_chip_digest.py holds the reference to these
+REF_MD5 = {
+    "97 256x256x3": "7c51a8bd0b5abf07f51e726ab6ad9694",
+    "97 2160x3840x3": "87ee403c75cc2803a3df68ad7f904790",
+}
+# golden_md5 of grok_tpu.decompress's planes for every corpus stream the
+# port decodes, with the manifest's decode parameters (anchored by
+# tests/test_torch_chip_digest.py); the other corpus streams are refused by
+# name
+CORPUS_REF_MD5 = {
+    "allstyles.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "big_offset.j2k": "514e9b4e7f5643385720a6fb84cd5265",
+    "bypass.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "bypass_ht_mix_gray.j2k": "a7f96c70be9d0cc42925fad697b88b78",
+    "cblk16.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "cblk_1024x4.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "cblk_128x32.j2k": "92bb931150b350bf3694de73b9f04aab",
+    "cblk_16x64_tiles.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "cblk_4x1024.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "cblk_4x4.j2k": "ccbbac3aed83ea6db10d14e619b3a8af",
+    "cmyk8.j2k": "069c9176ce3b1d53b3b5619a1a7d51f8",
+    "cmyk8_tiles.j2k": "069c9176ce3b1d53b3b5619a1a7d51f8",
+    "coc_qcc_redundant.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "coc_qcc_redundant_ht.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "col_200x1.j2k": "c1b4379f10d7d633786e6e17b8bb8e11",
+    "comment_marker.j2k": "a7f96c70be9d0cc42925fad697b88b78",
+    "comment_tiles_layers.j2k": "afb3c0d15319aa1c70d662db9627f6ef",
+    "cprl.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "cprl_tiny_tiles.j2k": "a7f96c70be9d0cc42925fad697b88b78",
+    "crg_gray.j2k": "a7f96c70be9d0cc42925fad697b88b78",
+    "crg_rgb_tiles.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "gray10_tiles.j2k": "d0970b35349bd679e6d3567dddd02346",
+    "gray12.j2k": "f3601c75d8a941fb9cc2c4abee9a88e1",
+    "gray12_ht.j2k": "f3601c75d8a941fb9cc2c4abee9a88e1",
+    "gray12_tiles_layers.j2k": "59f85ede74c284d4859bc4b4e81c0eb3",
+    "gray14_bypass.j2k": "7c26ce069329c320483dc7972da3b0af",
+    "gray16.j2k": "60698d9742314ef8072a648d4d845750",
+    "gray16_tiles.j2k": "60698d9742314ef8072a648d4d845750",
+    "gray2.j2k": "731c3db3bafef73f58200a72042b54f5",
+    "gray4.j2k": "4b3c10732ee183877adf620464bf1239",
+    "gray6.j2k": "e86ab5fb1df315fb53223487ff915b62",
+    "guard3.j2k": "a7f96c70be9d0cc42925fad697b88b78",
+    "guard4_gray12.j2k": "f3601c75d8a941fb9cc2c4abee9a88e1",
+    "ht.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "ht_cblk32x128.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "ht_gray.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "ht_gray16.j2k": "b134467ede0af88847979ccc4c023f60",
+    "ht_psnr.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "layers.j2k": "777c0bb89d218b518a4307be8206ce10",
+    "layers10.j2k": "c56a6891bec8148dca17f138b902349d",
+    "layers10_l7.j2k": "29c098709bb06b5037bf01f16234aa6b",
+    "layers6.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "layers6_l3.j2k": "20f1e8fd83ff124558e8e057bfc792d9",
+    "layers8_gray.j2k": "a3d98750b140f399ebe25fa396ec9a06",
+    "layers8_l5.j2k": "a62b049cf4728f4245b68dd5d6ac6fc1",
+    "levels2.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "lossless_gray.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "lossless_odd.j2k": "1f5149b07daabf4866a9526865213327",
+    "lossless_rgb.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "lossy97.j2k": "39bd97c126a29a6e3d3aaf4838b0e2b8",
+    "lossy97_gray.j2k": "39bd97c126a29a6e3d3aaf4838b0e2b8",
+    "lossy97_gray16.j2k": "7c10ca378205ff4d73a8120e872f66bc",
+    "lossy97_ht.j2k": "5cc31918f8fe9768e8057b99ce1905ed",
+    "lossy97_psnr.j2k": "1eed9a15173b1e963fe73e6d504222d4",
+    "lossy97_rates.j2k": "cb1af7b6fd7ad495676f7da87c74a6ac",
+    "lossy97_tiles.j2k": "c1f3c464fd0544fcc80b4d07c3ca1a31",
+    "lossy97_tiles_l1.j2k": "562ab58a24baed957afcc3f805cc7c4b",
+    "mode_all_0x3f.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "mode_all_tiles16.j2k": "b134467ede0af88847979ccc4c023f60",
+    "mode_bypass_reset.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "mode_pterm.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "mode_pterm_segsym.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "mode_reset_termall.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "mode_segsym.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "mode_vsc.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "offset.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "offset_tiles.j2k": "92bb931150b350bf3694de73b9f04aab",
+    "pcrl.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "pcrl_tiles_layers.j2k": "c13d5091f55fe6ab936be96891ab5a0f",
+    "psnr4_l2.j2k": "f65c4d8c6335fabce3afc21a3c079ba9",
+    "psnr_layers.j2k": "0acd52a0d853224c7385dfc89a219b77",
+    "pterm.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "res2_offset.j2k": "b134467ede0af88847979ccc4c023f60",
+    "res7.j2k": "9846cbdc31c99cbd69833ac0a509266d",
+    "res8_big.j2k": "9673caeb964c206dc8a050649b5fa8dd",
+    "reset.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "rlcp.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "rlcp_bypass_layers.j2k": "4d12fa2ef11fd847b82f10e466a76fcb",
+    "rlcp_layers_l1.j2k": "84162286d8ea83dff82ddfa69da69624",
+    "rlcp_offset_tiles.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "row_1x200.j2k": "7dabf36e9d42c193bd9c5e1c1f1492ee",
+    "rpcl_tiles.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "segsym.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "single_res.j2k": "92bb931150b350bf3694de73b9f04aab",
+    "sub420_16.j2k": "bbe34a4a0a7cd8612a45744c67553f47",
+    "sub420_16_ht.j2k": "bbe34a4a0a7cd8612a45744c67553f47",
+    "sub420_8.j2k": "3626fbdf2b0e01d98f1b4976f10a464f",
+    "termall.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "tiles.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "tiny_5x3.j2k": "feaecdf360312f317c72b9ec66897b60",
+    "tp_divider_C.j2k": "92bb931150b350bf3694de73b9f04aab",
+    "tp_divider_R.j2k": "92bb931150b350bf3694de73b9f04aab",
+    "tp_divider_R_ht.j2k": "402fe7f760e8ae101add7699407ca33c",
+    "vsc.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "ycc_off.j2k": "402fe7f760e8ae101add7699407ca33c",
+}
+CUTS = (0.1, 0.3, 0.6, 0.9, 0.99)
 
 
 def natural_image(h, w, nc=3):
@@ -82,6 +212,31 @@ def natural_image(h, w, nc=3):
         [g] + [np.clip(g + r.integers(-20, 20, (h, w)), 0, 255) for _ in range(nc - 1)],
         axis=-1,
     ).astype(np.int32)
+
+
+def golden_md5(planes) -> str:
+    """The corpus's digest recipe (tests/conftest.py golden_md5): md5 over
+    each component plane as contiguous int32 bytes + str(shape), in
+    component order."""
+    h = hashlib.md5()
+    for a in planes:
+        a = np.ascontiguousarray(np.asarray(a).astype(np.int32))
+        h.update(a.tobytes())
+        h.update(str(a.shape).encode())
+    return h.hexdigest()
+
+
+def cut_streams(gt, device=None):
+    """The truncated phase's inputs: a 40x40x3 random image with 24x24
+    tiles and 3 resolutions, Part-1 and HT, cut to CUTS of its length."""
+    arr = np.random.default_rng(0).integers(0, 256, (40, 40, 3)).astype(np.int32)
+    out = []
+    for ht in (False, True):
+        s = gt.compress(gt.Image.from_array(arr),
+                        gt.CompressParams(tile_size=(24, 24), num_resolutions=3, ht=ht),
+                        device=device)
+        out += [(f"{'ht' if ht else 'part1'} {frac}", s[:int(len(s) * frac)]) for frac in CUTS]
+    return out
 
 
 def emit(obj) -> None:
@@ -147,7 +302,6 @@ def main() -> int:
     import grok_tpu_torch as gt
     from grok_tpu_torch import kernels
     from grok_tpu_torch.codestream.compress import build_siz, build_tcp
-    from grok_tpu_torch.codestream.quantizer import apply_band_quant
     from grok_tpu_torch.ops import transform as tr
     from grok_tpu_torch.t1 import ebcot_cuda as ec
     from grok_tpu_torch.t1 import ht_cuda as hc
@@ -186,8 +340,7 @@ def main() -> int:
     params = gt.CompressParams(num_resolutions=6)
     siz, tcp = build_siz(image, params), build_tcp(image, params)
     tp = TileProcessor(siz, tcp, 0, dev)
-    for c in range(NC):
-        apply_band_quant(tp.geoms[c], tcp.tccps[c])
+    tp._apply_band_quant()
     planes = [torch.from_numpy(np.ascontiguousarray(arr[:, :, c])).to(dev) for c in range(NC)]
     dcs = [128] * NC
     stats = {}
@@ -366,12 +519,12 @@ def main() -> int:
     seg_bytes = int(hlen.sum())
     hdata = hbuf[:, :int(hlen.max())].contiguous()
     hlen32 = hlen.to(torch.int32)
-    dec, dec_wide = hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw)
+    dec, dec_stopped = hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw)
     ms_f = cuda_ms(torch, lambda: hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw),
                    reps=3)
-    if bool(dec_wide.any()) or not torch.equal(dec, batch):
+    if bool(dec_stopped.any()) or not torch.equal(dec, batch):
         raise AssertionError("ht_cleanup_dec of the 4K batch is not the batch")
-    del dec, dec_wide
+    del dec, dec_stopped
     s_h, s_w = h32[idx].contiguous(), w32[idx].contiguous()
     k_enc = hc.ht_cleanup_enc(s_batch, s_h, s_w, htab, mmax)
     plain_ms_e, p_enc = cpu_ms(lambda: hc.ht_cleanup_enc_plain(
@@ -432,9 +585,87 @@ def main() -> int:
         bytes=6 * 4 * W * H, ops=10 * W * H, library_ms=None, shape=f"3 x {H}x{W} int32")
     del kern, plain, k_out, p_out, scratch
 
+    # K-j ... K-o on the whole image: the 9/7 + ICT chain, each kernel on
+    # the previous one's output, against its plain version on the card
+    # (compared on the float32 bits)
+    def same_bits(a, b):
+        a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (a, b))
+        return torch.equal(a, b)
+
+    def err_of(xs, ys):
+        if all(same_bits(x, y) for x, y in zip(xs, ys)):
+            return 0.0
+        return max(float((x.double() - y.double()).abs().nan_to_num(1e30).max())
+                   for x, y in zip(xs, ys)) or 1e-30  # differing bits count as an error
+
+    tp97 = TileProcessor(siz, build_tcp(image, gt.CompressParams(**P97)), 0, dev)
+    tp97._apply_band_quant()
+    bands = tp97.band_tables()
+    npx = W * H
+    f_in = tr.dc_ict_fwd(planes, dcs, True)
+    stats["dc_ict_fwd"] = dict(
+        max_abs_err=err_of(f_in, tr.dc_ict_fwd_plain(planes, dcs, True)),
+        ms=cuda_ms(torch, lambda: tr.dc_ict_fwd(planes, dcs, True)),
+        plain_ms=cuda_ms(torch, lambda: tr.dc_ict_fwd_plain(planes, dcs, True)),
+        bytes=6 * 4 * npx, ops=15 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
+        shape=f"3 x {H}x{W} int32 -> float32")
+    kern = [p.clone() for p in f_in]
+    plain = [p.clone() for p in f_in]
+    dwt_all(tr.dwt97_fwd_level, kern)
+    dwt_all(tr.dwt97_fwd_level_plain, plain)
+    scratch = [p.clone() for p in f_in]  # timed in place, as K-b is
+    lift_bytes = sum(8 * h * w for (h, w, _, _) in levels)
+    lift_ops = sum(26 * h * w for (h, w, _, _) in levels)  # 4 steps of 3 + a scaling, 2 axes
+    stats["dwt97_fwd_level"] = dict(
+        max_abs_err=err_of(kern, plain),
+        ms=cuda_ms(torch, lambda: dwt_all(tr.dwt97_fwd_level, scratch)),
+        plain_ms=cuda_ms(torch, lambda: dwt_all(tr.dwt97_fwd_level_plain, scratch)),
+        bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S, library_ms=None,
+        shape="5 levels x 3 comps from 2160x3840 float32 (ms per image)")
+    q_k = [tr.quant_deadzone(p, b) for p, b in zip(kern, bands)]
+    q_p = [tr.quant_deadzone_plain(p, b) for p, b in zip(kern, bands)]
+    stats["quant_deadzone"] = dict(
+        max_abs_err=err_of(q_k, q_p),
+        ms=cuda_ms(torch, lambda: [tr.quant_deadzone(p, b) for p, b in zip(kern, bands)]),
+        plain_ms=cuda_ms(torch, lambda: [tr.quant_deadzone_plain(p, b)
+                                         for p, b in zip(kern, bands)]),
+        bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
+        shape=f"3 x {H}x{W} float32 -> int32, {len(bands[0])} bands a component")
+    d_k = [tr.dequant_midbin(q, b) for q, b in zip(q_k, bands)]
+    d_p = [tr.dequant_midbin_plain(q, b) for q, b in zip(q_k, bands)]
+    stats["dequant_midbin"] = dict(
+        max_abs_err=err_of(d_k, d_p),
+        ms=cuda_ms(torch, lambda: [tr.dequant_midbin(q, b) for q, b in zip(q_k, bands)]),
+        plain_ms=cuda_ms(torch, lambda: [tr.dequant_midbin_plain(q, b)
+                                         for q, b in zip(q_k, bands)]),
+        bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
+        shape=f"3 x {H}x{W} int32 -> float32, {len(bands[0])} bands a component")
+    kern = [p.clone() for p in d_k]
+    plain = [p.clone() for p in d_k]
+    idwt_all(tr.dwt97_inv_level, kern)
+    idwt_all(tr.dwt97_inv_level_plain, plain)
+    scratch = [p.clone() for p in d_k]
+    stats["dwt97_inv_level"] = dict(
+        max_abs_err=err_of(kern, plain),
+        ms=cuda_ms(torch, lambda: idwt_all(tr.dwt97_inv_level, scratch)),
+        plain_ms=cuda_ms(torch, lambda: idwt_all(tr.dwt97_inv_level_plain, scratch)),
+        bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S, library_ms=None,
+        shape="5 levels x 3 comps to 2160x3840 float32 (ms per image)")
+    o_k = tr.ict_inv_dc_round_clip(kern, dcs, rng8, True)
+    o_p = tr.ict_inv_dc_round_clip_plain(kern, dcs, rng8, True)
+    worst = max(int((o.cpu() - torch.from_numpy(np.ascontiguousarray(arr[:, :, c]))).abs().max())
+                for c, o in enumerate(o_k))
+    stats["ict_inv_dc_round_clip"] = dict(
+        max_abs_err=err_of(o_k, o_p),
+        ms=cuda_ms(torch, lambda: tr.ict_inv_dc_round_clip(kern, dcs, rng8, True)),
+        plain_ms=cuda_ms(torch, lambda: tr.ict_inv_dc_round_clip_plain(kern, dcs, rng8, True)),
+        bytes=6 * 4 * npx, ops=14 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
+        shape=f"3 x {H}x{W} float32 -> int32", chain_max_err_vs_input=worst)
+    del f_in, kern, plain, scratch, q_k, q_p, d_k, d_p, o_k, o_p
+
     for name, s in stats.items():
         bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = s["ops"] / INT32_OPS_PER_S * 1e3
+        ops_ms = s["ops"] / s.pop("op_rate", INT32_OPS_PER_S) * 1e3
         s["bound_ms"] = max(bytes_ms, ops_ms)
         s["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         emit({"phase": "check", "kernel": name, "tolerance": 0, **s})
@@ -487,6 +718,30 @@ def main() -> int:
     if h_gpu != h_cpu or not ref_ok or not dec_same:
         raise AssertionError("256x256 HT card stream or decode differs from the plain path, "
                              "grok_tpu's stream or the input")
+
+    t0 = time.perf_counter()
+    l_gpu = gt.compress(gt.Image.from_array(small), gt.CompressParams(**P97))
+    t1 = time.perf_counter()
+    ld_gpu = gt.decompress(l_gpu)
+    t2 = time.perf_counter()
+    l_cpu = gt.compress(gt.Image.from_array(small), gt.CompressParams(**P97), device="cpu")
+    ld_cpu = gt.decompress(l_gpu, device="cpu")
+    t3 = time.perf_counter()
+    sha, ref_ok = digest_ok(l_gpu, "97 256x256x3")
+    md5 = golden_md5([c.data for c in ld_gpu.components])
+    dec_same = all(np.array_equal(a.data, b.data)
+                   for a, b in zip(ld_gpu.components, ld_cpu.components))
+    emit({"phase": "slice_97", "image": "256x256x3", "params": P97, "bytes": len(l_gpu),
+          "identical": l_gpu == l_cpu, "sha256": sha, "reference_digest": ref_ok,
+          "decode_equal": dec_same, "decode_md5": md5,
+          "decode_reference_digest": md5 == REF_MD5["97 256x256x3"],
+          "max_abs_err_vs_input": max(int(np.abs(c.data - small[:, :, k]).max())
+                                      for k, c in enumerate(ld_gpu.components)),
+          "gpu_enc_ms": (t1 - t0) * 1e3, "gpu_dec_ms": (t2 - t1) * 1e3,
+          "plain_cpu_ms": (t3 - t2) * 1e3})
+    if l_gpu != l_cpu or not ref_ok or not dec_same or md5 != REF_MD5["97 256x256x3"]:
+        raise AssertionError("256x256 9/7 card stream or decode differs from the plain path "
+                             "or grok_tpu's")
 
     # ---- 6. full size, three requests
     gt.reset_launch_counts()
@@ -575,6 +830,94 @@ def main() -> int:
         raise AssertionError(f"a kernel of the HT path never launched: {ht_counts}")
     for k in HT_KERNELS[2:]:
         counts[k] = ht_counts[k]
+
+    # ---- 8. lossy 9/7 + ICT at full size, three encodes and three decodes
+    gt.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    streams = []
+    for i in range(3):
+        stage = {}
+        img = gt.Image.from_array(arr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gt.compress(img, gt.CompressParams(**P97), stage_ms=stage)
+        torch.cuda.synchronize()
+        e2e = (time.perf_counter() - t0) * 1e3
+        sha, ref_ok = digest_ok(out, f"97 {H}x{W}x{NC}")
+        emit({"phase": "e2e_97", "op": "encode", "request": i, "e2e_ms": e2e,
+              "mp_per_s": W * H / 1e6 / (e2e / 1e3), "bytes": len(out), "sha256": sha,
+              "reference_digest": ref_ok, "stage_ms": stage})
+        if not ref_ok:
+            raise AssertionError(f"9/7 request {i}: the stream is not grok_tpu's ({len(out)} B)")
+        streams.append(out)
+    for i, stream in enumerate(streams):
+        stage = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = gt.decompress(stream, stage_ms=stage)
+        torch.cuda.synchronize()
+        e2e = (time.perf_counter() - t0) * 1e3
+        md5 = golden_md5([c.data for c in back.components])
+        emit({"phase": "e2e_97", "op": "decode", "request": i, "e2e_ms": e2e,
+              "mp_per_s": W * H / 1e6 / (e2e / 1e3), "decode_md5": md5,
+              "reference_digest": md5 == REF_MD5[f"97 {H}x{W}x{NC}"],
+              "max_abs_err_vs_input": max(int(np.abs(c.data - arr[:, :, k]).max())
+                                          for k, c in enumerate(back.components)),
+              "stage_ms": stage})
+        if md5 != REF_MD5[f"97 {H}x{W}x{NC}"]:
+            raise AssertionError(f"9/7 decode {i}: not grok_tpu's decode")
+    l_counts = gt.launch_counts()
+    emit({"phase": "e2e_97_launches", "image": f"{W}x{H}x{NC} lossy97 (no rate target)",
+          "requests": 3, "launches": l_counts,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if any(l_counts[k] <= 0 for k in K97_KERNELS):
+        raise AssertionError(f"a kernel of the 9/7 path never launched: {l_counts}")
+    for k in K97_KERNELS:
+        if k not in counts or counts[k] == 0:
+            counts[k] = l_counts[k]
+    del streams
+
+    # ---- 9. truncated streams: the card's planes equal the plain path's
+    cuts = cut_streams(gt)
+    gt.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = [[c.data for c in gt.decompress(data).components] for _, data in cuts]
+    t1 = time.perf_counter()
+    same = [all(np.array_equal(a, b.data)
+                for a, b in zip(got, gt.decompress(data, device="cpu").components))
+            for got, (_, data) in zip(on_card, cuts)]
+    emit({"phase": "truncated", "cuts": [k for k, _ in cuts], "equal": same,
+          "gpu_ms": (t1 - t0) * 1e3, "launches": gt.launch_counts()})
+    if not all(same):
+        raise AssertionError("a truncated stream decodes differently on the card")
+
+    # ---- 10. the corpus: every stream identical to grok_tpu's decode or
+    # refused by name
+    from pathlib import Path
+
+    corpus = Path(__file__).resolve().parent / "tests" / "corpus"
+    manifest = {e["name"]: e for e in json.loads((corpus / "manifest.json").read_text())}
+    tally = {"identical": [], "refused": {}, "differ": [], "unpinned": []}
+    t0 = time.perf_counter()
+    for name in sorted(n for n in manifest if n.endswith(".j2k")):
+        data = (corpus / "streams" / name).read_bytes()
+        try:
+            img = gt.decompress(data, gt.DecompressParams(**manifest[name].get("decode", {})))
+        except gt.UnsupportedFeatureError as e:
+            tally["refused"][name] = str(e)
+            continue
+        md5 = golden_md5([c.data for c in img.components])
+        key = ("identical" if md5 == CORPUS_REF_MD5.get(name)
+               else "differ" if name in CORPUS_REF_MD5 else "unpinned")
+        tally[key].append(name)
+    emit({"phase": "corpus", "streams": sum(map(len, tally.values())),
+          "identical": len(tally["identical"]), "refused": len(tally["refused"]),
+          "differ": tally["differ"], "unpinned": tally["unpinned"],
+          "refused_by": tally["refused"], "seconds": time.perf_counter() - t0})
+    missing = sorted(set(CORPUS_REF_MD5) - set(tally["identical"]))
+    if tally["differ"] or tally["unpinned"] or missing:
+        raise AssertionError(f"corpus: differ {tally['differ']}, unpinned {tally['unpinned']}, "
+                             f"pinned but not decoded {missing}")
 
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",

@@ -1,7 +1,8 @@
 """Whole-image codestream encoder; counterpart of
 grok_tpu/codestream/compress.py (build_siz, build_tcp, write_main_header,
-encode_tile_to_blob, compress) for the lossless slices: Part-1 (MQ) and
-HTJ2K cleanup-only (``ht=True``).
+encode_tile_to_blob, compress) for the ported slices: Part-1 (MQ) and
+HTJ2K cleanup-only (``ht=True``), reversible 5/3 + RCT or irreversible
+9/7 + ICT (``irreversible=True``, quantization style 2 or 1), one layer.
 
 Host-side orchestration: the main header, one TileProcessor per tile
 (each drives the device work of its tile), tiles one after another.
@@ -24,10 +25,9 @@ from .structs import Siz, SizComponent, Tcp, TccpStyle
 
 
 def check_supported(params: CompressParams) -> None:
-    """Refuse every option outside the lossless slices by name."""
+    """Refuse every option outside the ported slices by name."""
     off = {
         "ht_refine (HT refinement passes)": params.ht and params.ht_refine,
-        "irreversible": params.irreversible,
         "mct_matrix": params.mct_matrix is not None,
         "custom_mct": params.custom_mct is not None,
         "num_layers>1": params.num_layers != 1,
@@ -45,13 +45,16 @@ def check_supported(params: CompressParams) -> None:
         "write_ppt": params.write_ppt,
         "write_ppm": params.write_ppm,
         "profile": params.profile != 0,
-        "quant_style": params.quant_style not in (None, QuantStyle.NO_QUANT),
+        "quant_style with the reversible transform": (
+            not params.irreversible and params.quant_style not in (None, QuantStyle.NO_QUANT)),
+        "quant_style 0 with the irreversible transform": (
+            params.irreversible and params.quant_style == QuantStyle.NO_QUANT),
         "cblk_style bits above 0x3F": (params.cblk_style & ~0x3F) != 0,
     }
     bad = [k for k, v in off.items() if v]
     if bad:
         raise UnsupportedFeatureError(
-            f"outside the ported lossless slices: {', '.join(bad)}")
+            f"outside the ported slices: {', '.join(bad)}")
 
 
 def build_siz(image: Image, params: CompressParams) -> Siz:
@@ -83,6 +86,9 @@ def build_tcp(image: Image, params: CompressParams) -> Tcp:
     cs = image.components
     equal = len(cs) >= 3 and all((c.dx, c.dy) == (cs[0].dx, cs[0].dy) for c in cs[:3])
     tcp.mct = 1 if params.resolved_mct(image.num_comps, equal) else 0
+    qs = params.quant_style
+    if qs is None:
+        qs = QuantStyle.SCALAR_EXPOUNDED if params.irreversible else QuantStyle.NO_QUANT
     for c in range(image.num_comps):
         t = TccpStyle(
             num_resolutions=params.num_resolutions,
@@ -90,10 +96,12 @@ def build_tcp(image: Image, params: CompressParams) -> Tcp:
             cblk_h_exp=params.cblk_height.bit_length() - 1,
             cblk_style=params.cblk_style | (CBLK_HT if params.ht else 0),
             guard_bits=params.guard_bits,
+            irreversible=params.irreversible,
+            quant_style=qs,
         )
         prec = image.components[c].prec
-        if tcp.mct == 1 and c in (1, 2):
-            prec += 1  # RCT expands the chroma range by one bit
+        if tcp.mct == 1 and not params.irreversible and c in (1, 2):
+            prec += 1  # RCT expands the chroma range by one bit; ICT does not
         compute_signalled_quant(t, prec)
         tcp.tccps.append(t)
     return tcp
@@ -105,8 +113,8 @@ def write_main_header(siz: Siz, tcp: Tcp, params: CompressParams) -> bytearray:
     out += mk._u16(mk.SOC)
     out += mk.write_siz(siz)
     if params.ht:
-        # CAP: Pcap bit for Part 15, Ccap15 from MAGB (T.814 A.3); the
-        # reversible slice leaves the irreversible bit clear
+        # CAP: Pcap bit for Part 15, Ccap15 from MAGB (T.814 A.3); grok_tpu
+        # masks the irreversible bit (0x20) off for 9/7 too, so it stays clear
         magb = max(max(t.step_exps) + t.guard_bits - 1 for t in tcp.tccps)
         if magb <= 8:
             bp = 0
@@ -122,7 +130,7 @@ def write_main_header(siz: Siz, tcp: Tcp, params: CompressParams) -> bytearray:
     base = tcp.tccps[0]
     for c in range(1, siz.num_comps):
         t = tcp.tccps[c]
-        if t.step_exps != base.step_exps:
+        if t.step_exps != base.step_exps or t.step_mants != base.step_mants:
             out += mk.write_qcc(tcp, c, siz.num_comps)
     if params.comment:
         out += mk.write_com(params.comment.encode())

@@ -1,14 +1,16 @@
-"""Whole-image codestream decoder for the reversible slices, Part-1 (MQ)
-and HTJ2K; counterpart of grok_tpu/codestream/decompress.py (Decoder: main
-header, tile-part walk, _paste_tile :366-399; decompress :403).
+"""Whole-image codestream decoder for the ported slices, Part-1 (MQ) and
+HTJ2K, reversible 5/3 or irreversible 9/7; counterpart of
+grok_tpu/codestream/decompress.py (Decoder: main header, tile-part walk,
+_paste_tile :366-399; decompress :403).
 
 Host-side orchestration: the main header, the tile-part index and each
 tile-part header are parsed here; one TileProcessor per tile drives its
 device work, tiles one after another. ``DecompressParams.max_layers``
 limits the decode to the first quality layers. Streams outside the slices
-(9/7, precincts, SOP/EPH, ROI, POC, packed headers, length markers,
-Part-2 MCT, mixed HT and Part-1 codeblocks) and the other non-default
-DecompressParams are refused by name.
+(precincts, SOP/EPH, ROI, POC, packed headers, length markers, Part-2 MCT,
+mixed HT and Part-1 codeblocks) and the other non-default DecompressParams
+are refused by name. A corrupt or truncated tile decodes as far as its
+intact packets go, or as an empty tile.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import dataclasses
 
 import numpy as np
 
-from ..core.errors import CodestreamError, InvalidMarkerError, UnsupportedFeatureError
+from ..core.errors import (CodestreamError, GrokTpuError, InvalidMarkerError,
+                           UnsupportedFeatureError)
 from ..core.image import Component, Image
 from ..core.params import CBLK_HT, ColorSpace, DecompressParams
 from ..core.rect import ceil_div
@@ -41,12 +44,11 @@ def check_params(params: DecompressParams) -> None:
 
 
 def check_decodable(tcp: Tcp) -> None:
-    """Refuse coding styles outside the reversible decode slices by name."""
+    """Refuse coding styles outside the decode slices by name."""
     off = {
         "mixed HT / Part-1 codeblocks": (any(t.cblk_style & 0x80 for t in tcp.tccps)
                                          or len({t.cblk_style & CBLK_HT
                                                  for t in tcp.tccps}) > 1),
-        "9/7 irreversible transform": any(t.irreversible for t in tcp.tccps),
         "precinct sizes": any(t.precinct_exps is not None for t in tcp.tccps),
         "SOP/EPH markers": bool(tcp.csty & 0x06),
         f"MCT {tcp.mct}": tcp.mct not in (0, 1),
@@ -56,9 +58,47 @@ def check_decodable(tcp: Tcp) -> None:
         raise UnsupportedFeatureError(f"outside the ported decode slice: {', '.join(bad)}")
 
 
-def index_tile_parts(data, first_sot: int) -> dict[int, list[tuple[int, int, int]]]:
+def _valid_sot_at(data, pos: int, num_tiles: int) -> bool:
+    """Plausibility check for an SOT marker segment at ``pos``."""
+    if pos + 12 > len(data):
+        return False
+    c = mk.Cursor(data, pos)
+    if c.u16() != mk.SOT or c.u16() != 10:
+        return False
+    ti, psot, tpi, tn = mk.read_sot(c)
+    return ti < num_tiles and (psot == 0 or psot >= 14) and (tn == 0 or tpi < tn)
+
+
+_RESYNC_FWD_WINDOW = 8 << 20  # bounds the forward scan on adversarial streams
+
+
+def _resync_sot(data, body_start: int, end: int, num_tiles: int) -> int | None:
+    """The real start of the next tile-part when Psot lied: the valid SOT
+    nearest before ``end`` within 64 bytes, else the first after it within
+    a bounded window (grok_tpu/cache/length_cache.py _resync_sot)."""
+    lo = max(body_start, end - 64)
+    b = bytes(data[lo:min(len(data), end)])
+    for rel in range(len(b) - 2, -1, -1):
+        if b[rel] == 0xFF and b[rel + 1] == 0x90 and _valid_sot_at(data, lo + rel, num_tiles):
+            return lo + rel
+    pos = end
+    hi = min(len(data), end + _RESYNC_FWD_WINDOW)
+    while pos + 2 <= hi:
+        nxt = bytes(data[pos:min(hi, pos + 65536)]).find(b"\xff\x90")
+        if nxt < 0:
+            pos += 65536 - 1
+            continue
+        if _valid_sot_at(data, pos + nxt, num_tiles):
+            return pos + nxt
+        pos += nxt + 2
+    return None
+
+
+def index_tile_parts(data, first_sot: int,
+                     num_tiles: int) -> dict[int, list[tuple[int, int, int]]]:
     """{tile: [(tp_index, sot_offset, body_end)]} by walking the SOT
-    markers (the reference's index_by_scan, without resynchronisation)."""
+    markers, resynchronising on the next valid SOT where Psot lies (the
+    reference's index_by_scan, grok_tpu/cache/length_cache.py:117)."""
     spans: dict[int, list[tuple[int, int, int]]] = {}
     c = mk.Cursor(data, first_sot)
     while c.remaining() >= 2:
@@ -70,7 +110,16 @@ def index_tile_parts(data, first_sot: int) -> dict[int, list[tuple[int, int, int
         sot = c.pos - 2
         c.u16()
         ti, psot, tpi, _ = mk.read_sot(c)
+        while c.u16() != mk.SOD:  # the tile-part header
+            ln = c.u16()
+            c.pos += ln - 2
         end = min(sot + psot, len(data)) if psot else len(data)
+        if end + 2 <= len(data) and ((data[end] << 8) | data[end + 1]) not in (mk.SOT, mk.EOC):
+            fixed = _resync_sot(data, c.pos, end, num_tiles)
+            if fixed is None:
+                end = len(data)
+            elif fixed >= c.pos:  # an empty body is valid; never cut the header
+                end = fixed
         spans.setdefault(ti, []).append((tpi, sot, end))
         c.pos = end
     return spans
@@ -106,7 +155,9 @@ def _make_image(header: HeaderInfo) -> Image:
                       for sc in siz.comps]
     img.finalize()
     for c in img.components:
-        c.data = np.zeros((c.h, c.w), dtype=np.int32)
+        # a tile without data (or with a corrupt tile index) holds the value
+        # of all-zero coefficients
+        c.data = np.full((c.h, c.w), 0 if c.signed else 1 << (c.prec - 1), dtype=np.int32)
     return img
 
 
@@ -138,21 +189,26 @@ def decompress(data, params: DecompressParams | None = None, device=None,
     header, first_sot = mk.parse_main_header(data)
     check_decodable(header.default_tcp)
     siz = header.siz
-    spans = index_tile_parts(data, first_sot)
+    spans = index_tile_parts(data, first_sot, siz.num_tiles)
     img = _make_image(header)
-    if len(spans) < siz.num_tiles:
-        # tiles without data hold the value of all-zero coefficients
-        for c in img.components:
-            c.data.fill(0 if c.signed else 1 << (c.prec - 1))
     clock.mark("markers")
     for ti in range(siz.num_tiles):
         if ti not in spans:
             continue
-        tcp, body = read_tile_headers(data, header, spans[ti])
-        check_decodable(tcp)
-        clock.mark("markers")
-        planes = TileProcessor(siz, tcp, ti, dev).decompress(body, clock, params.max_layers)
-        arrays = [p.cpu().numpy() for p in planes]
+        try:
+            tcp, body = read_tile_headers(data, header, spans[ti])
+            check_decodable(tcp)
+            clock.mark("markers")
+            planes = TileProcessor(siz, tcp, ti, dev).decompress(body, clock, params.max_layers)
+            arrays = [p.cpu().numpy() for p in planes]
+        except UnsupportedFeatureError:
+            raise  # a feature refused by name is not corruption
+        except (GrokTpuError, ValueError, IndexError, OverflowError):
+            # corrupt-tile tolerance (grok_tpu/codestream/decompress.py:
+            # 180-201): a broken tile decodes as an empty one, the DC level
+            # _make_image filled in. A CUDA launch error is a RuntimeError
+            # and is never caught.
+            continue
         clock.mark("to_host")
         _paste_tile(img, header, ti, arrays)
     return img

@@ -63,7 +63,7 @@ def _write_spcod(tccp: TccpStyle) -> bytes:
     p += _u8(tccp.cblk_w_exp - 2)
     p += _u8(tccp.cblk_h_exp - 2)
     p += _u8(tccp.cblk_style)
-    p += _u8(1)  # Table A-20: 1 = reversible 5/3
+    p += _u8(0 if tccp.irreversible else 1)  # Table A-20: 0 = 9/7, 1 = 5/3
     return bytes(p)
 
 
@@ -78,11 +78,17 @@ def write_cod(tcp: Tcp) -> bytes:
 
 
 def _write_sqcd(tccp: TccpStyle) -> bytes:
-    """Reversible quantization: the guard bits and one exponent per band."""
+    """Sqcd and its SPqcd: an exponent byte per band (no quantization), or
+    16-bit exponent and mantissa words, every band's (expounded) or the
+    LL band's only (derived)."""
     p = bytearray()
-    p += _u8(int(QuantStyle.NO_QUANT) | (tccp.guard_bits << 5))
-    for e in tccp.step_exps:
-        p += _u8(e << 3)
+    p += _u8(int(tccp.quant_style) | (tccp.guard_bits << 5))
+    if tccp.quant_style == QuantStyle.NO_QUANT:
+        for e in tccp.step_exps:
+            p += _u8(e << 3)
+    else:
+        for e, m in zip(tccp.step_exps, tccp.step_mants):
+            p += _u16((e << 11) | m)
     return bytes(p)
 
 
@@ -205,12 +211,16 @@ def read_coc(c: Cursor, tcp: Tcp, num_comps: int) -> None:
 
 def _read_sqcd(c: Cursor, tccp: TccpStyle) -> None:
     sqcd = c.u8()
-    tccp.quant_style = sqcd & 0x1F
+    tccp.quant_style = QuantStyle(sqcd & 0x1F)  # ValueError on a bad style, as grok_tpu
     tccp.guard_bits = sqcd >> 5
-    if tccp.quant_style != QuantStyle.NO_QUANT:
-        raise UnsupportedFeatureError(
-            f"outside the ported slices: quantization style {tccp.quant_style}")
-    tccp.step_exps = [c.u8() >> 3 for _ in range(c.remaining())]
+    if tccp.quant_style == QuantStyle.NO_QUANT:
+        tccp.step_exps = [c.u8() >> 3 for _ in range(c.remaining())]
+        tccp.step_mants = [0] * len(tccp.step_exps)
+        return
+    n = 1 if tccp.quant_style == QuantStyle.SCALAR_DERIVED else c.remaining() // 2
+    words = [c.u16() for _ in range(n)]
+    tccp.step_exps = [v >> 11 for v in words]
+    tccp.step_mants = [v & 0x7FF for v in words]
 
 
 def read_qcd(c: Cursor, tcp: Tcp) -> None:
@@ -219,6 +229,7 @@ def read_qcd(c: Cursor, tcp: Tcp) -> None:
     for t in tcp.tccps[1:]:
         t.quant_style, t.guard_bits = base.quant_style, base.guard_bits
         t.step_exps = list(base.step_exps)
+        t.step_mants = list(base.step_mants)
 
 
 def read_qcc(c: Cursor, tcp: Tcp, num_comps: int) -> None:

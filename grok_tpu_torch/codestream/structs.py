@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
-from ..core.params import ProgressionOrder
+from ..core.params import ProgressionOrder, QuantStyle
 from ..core.rect import Rect, ceil_div
 
 
@@ -63,26 +63,26 @@ class Siz:
 
 @dataclass
 class TccpStyle:
-    """Per-component coding style (COD SPcod) and reversible quantization
-    exponents (QCD)."""
+    """Per-component coding style (COD SPcod) and quantization (QCD/QCC)."""
 
     num_resolutions: int = 6
     cblk_w_exp: int = 6  # log2 codeblock width
     cblk_h_exp: int = 6
     cblk_style: int = 0
     guard_bits: int = 2
-    step_exps: list[int] = field(default_factory=list)  # per band (reversible)
+    step_exps: list[int] = field(default_factory=list)  # per signalled band
+    step_mants: list[int] = field(default_factory=list)  # 11-bit mantissas (9/7)
+    irreversible: bool = False  # 9/7
+    quant_style: QuantStyle = QuantStyle.NO_QUANT
     # as read from a stream; the decoder refuses what the slices lack
-    irreversible: bool = False
     precinct_exps: list[tuple[int, int]] | None = None
-    quant_style: int = 0
 
     def precinct_exp(self, res: int) -> tuple[int, int]:
         """Maximal precincts: these slices signal no precinct sizes."""
         return (15, 15)
 
     def copy(self) -> "TccpStyle":
-        return replace(self, step_exps=list(self.step_exps),
+        return replace(self, step_exps=list(self.step_exps), step_mants=list(self.step_mants),
                        precinct_exps=None if self.precinct_exps is None
                        else list(self.precinct_exps))
 
@@ -94,7 +94,7 @@ class Tcp:
     csty: int = 0
     progression: ProgressionOrder = ProgressionOrder.LRCP
     num_layers: int = 1
-    mct: int = 0  # 0: none, 1: RCT
+    mct: int = 0  # 0: none, 1: RCT (5/3) or ICT (9/7)
     tccps: list[TccpStyle] = field(default_factory=list)
 
     def copy(self) -> "Tcp":

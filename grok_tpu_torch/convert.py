@@ -3,7 +3,8 @@
 A codec has no trained weights; what must agree between grok_tpu and the
 port is its tables (EBCOT zero/sign-coding contexts and the MQ state
 machine, which the Part-1 encoder and decoder kernels both load; the 5/3
-band synthesis norms; the HT coder's CxtVLC, MEL and u-code tables) and
+and 9/7 band synthesis norms; the 9/7 lifting constants and the ICT
+matrices as float32; the HT coder's CxtVLC, MEL and u-code tables) and
 its parameters. These helpers
 take the reference's values as plain numpy arrays and dicts, so the port
 never imports the reference to use them.
@@ -19,6 +20,7 @@ import torch
 from .codestream.quantizer import band_norm
 from .core.errors import ParameterError
 from .core.params import CompressParams, ProgressionChange, ProgressionOrder, QuantStyle
+from .ops import transform
 from .t1 import ht
 from .t1.ebcot import SC_CTX, SC_XOR, ZC_LUT, ctx_table
 from .t1.ht_cuda import pack_ht_tables
@@ -32,25 +34,33 @@ NORM_LEVELS = 33
 def tables_from_numpy(d: dict, device=None) -> dict[str, torch.Tensor]:
     """The port's table tensors on ``device`` from numpy arrays named as in
     grok_tpu: _ZC_LUT [4, 45], _SC_CTX [9], _SC_XOR [9] (t1/ebcot_np.py),
-    QE, NMPS, NLPS, SWITCH [47] (t1/mq_np.py), band_norms [4, 33], the
-    reversible synthesis norm of each (orient, level 1..33), and the HT
-    tables of t1/ht.py (HT_TABLES: MEL_EXP [13], ENC_TBL [2, 2048],
-    DEC_TBL [2][8][128] entries or None, the u-code tables [33]), which
-    give "ht" in the HT kernels' layout (t1/ht_cuda.pack_ht_tables)."""
+    QE, NMPS, NLPS, SWITCH [47] (t1/mq_np.py), band_norms and band_norms97
+    [4, 33], the 5/3 and 9/7 synthesis norm of each (orient, level 1..33)
+    (codestream/quantizer.py), LIFT97 [6] (ops/dwt.py ALPHA, BETA, GAMMA,
+    DELTA, K and 1/K), ICT_FWD and ICT_INV [3, 3] (ops/mct.py _ICT_FWD,
+    _ICT_INV), the last three as float32, and the HT tables of t1/ht.py
+    (HT_TABLES: MEL_EXP [13], ENC_TBL [2, 2048], DEC_TBL [2][8][128]
+    entries or None, the u-code tables [33]), which give "ht" in the HT
+    kernels' layout (t1/ht_cuda.pack_ht_tables)."""
     t = {k: torch.from_numpy(np.ascontiguousarray(d[k]).astype(np.int64))
          for k in ("_ZC_LUT", "_SC_CTX", "_SC_XOR", "QE", "NMPS", "NLPS", "SWITCH")}
     if t["_ZC_LUT"].shape != (4, 45) or any(t[k].shape != (47,)
                                             for k in ("QE", "NMPS", "NLPS", "SWITCH")):
         raise ValueError("table shapes differ from the reference's")
-    norms = np.asarray(d["band_norms"], dtype=np.float64)
-    if norms.shape != (4, NORM_LEVELS):
-        raise ValueError(f"band_norms must be [4, {NORM_LEVELS}]")
-    return {
+    out = {
         "ctx": ctx_table(t["_ZC_LUT"], t["_SC_CTX"], t["_SC_XOR"]).to(device),
         "mq": mq_table(t["QE"], t["NMPS"], t["NLPS"], t["SWITCH"]).to(device),
-        "band_norms": torch.from_numpy(norms).to(device),
         "ht": pack_ht_tables(*(d[k] for k in HT_TABLES)).to(device),
     }
+    for key, dtype, shape in (("band_norms", np.float64, (4, NORM_LEVELS)),
+                              ("band_norms97", np.float64, (4, NORM_LEVELS)),
+                              ("LIFT97", np.float32, (6,)), ("ICT_FWD", np.float32, (3, 3)),
+                              ("ICT_INV", np.float32, (3, 3))):
+        a = np.asarray(d[key], dtype=dtype)
+        if a.shape != shape:
+            raise ValueError(f"{key} must be {list(shape)}")
+        out[key.lower()] = torch.from_numpy(a.copy()).to(device)
+    return out
 
 
 def builtin_tables(device=None) -> dict[str, torch.Tensor]:
@@ -59,8 +69,12 @@ def builtin_tables(device=None) -> dict[str, torch.Tensor]:
         "_ZC_LUT": ZC_LUT.numpy(), "_SC_CTX": SC_CTX.numpy(), "_SC_XOR": SC_XOR.numpy(),
         "QE": QE.numpy(), "NMPS": NMPS.numpy(), "NLPS": NLPS.numpy(),
         "SWITCH": SWITCH.numpy(),
-        "band_norms": np.array([[band_norm(o, lv) for lv in range(1, NORM_LEVELS + 1)]
-                                for o in range(4)], dtype=np.float64),
+        **{k: np.array([[band_norm(o, lv, irrev) for lv in range(1, NORM_LEVELS + 1)]
+                        for o in range(4)], dtype=np.float64)
+           for k, irrev in (("band_norms", False), ("band_norms97", True))},
+        "LIFT97": np.array(transform.LIFT97, dtype=np.float32),
+        "ICT_FWD": np.array(transform.ICT_FWD, dtype=np.float32),
+        "ICT_INV": np.array(transform.ICT_INV, dtype=np.float32),
         **{k: getattr(ht, k) for k in HT_TABLES},
     }, device)
 

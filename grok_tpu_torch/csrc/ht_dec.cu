@@ -1,5 +1,6 @@
 // K-f ht_cleanup_dec: decode a batch of HTJ2K cleanup segments (T.814
-// clause 7.3) into signed coefficients, with one wide flag per codeblock.
+// clause 7.3) into signed coefficients, with one flag per codeblock whose
+// decode stopped early on a corrupt segment.
 //
 // Replaces: grok_tpu/t1/ht_jax_dec.py _decode_device (:233), the XLA
 // program that unstuffs the three streams into dense words (_unstuff_* :60-
@@ -13,13 +14,12 @@
 //
 // Reads past a chunk give the scalar readers' pads (0xFF for MagSgn and MEL,
 // 0 for VLC), so such a codeblock decodes to what the scalar decoder gives;
-// no address outside the segment is touched. A codeblock with an invalid
-// CxtVLC codeword decodes to zeros (the scalar decoder raises there, and
-// the reference's batch driver writes zeros), as does one whose header is
-// invalid (Scup outside [2, Lcup]). A MagSgn field over MS_BIT_LIMIT (30)
-// bits would leave int32: the codeblock decodes to zeros and its wide flag
-// is set, and the wrapper (t1/ht_cuda.py decode_cleanup_batch) refuses the
-// stream.
+// no address outside the segment is touched. On a corrupt segment the decode
+// stops where grok_tpu's default decoder (native/ht_coder.cpp decode_block)
+// stops, keeping what it wrote, and flags the codeblock: at an invalid
+// CxtVLC codeword, at a MagSgn field over 32 bits, or at once when the header
+// is invalid (Scup outside [2, Lcup]). MagSgn fields of up to 32 bits are
+// read in 64-bit arithmetic and the result wraps to int32, as there.
 //
 // Bound on an H100 (3.35 TB/s): bytes. The segments are read once and the
 // int32 samples inside each codeblock written once: the 24.9M samples of a
@@ -34,7 +34,7 @@
 #define T_DEC 4096       // [2][8][128] rho | u_off<<4 | e_k<<5 | e_1<<9 | len<<13; -1 invalid
 #define T_MEL_EXP 6144   // [13]
 #define NQW_MAX 512
-#define MS_BIT_LIMIT 30
+#define MS_BITS 32  // the widest MagSgn field decode_block reads
 // codeblocks (threads) a CUDA block: fewer lanes a warp diverge less and
 // spread the 6,321 codeblocks of a 4K image over more SMs (PERF.md has the
 // sweep over 32, 16, 8 and 4)
@@ -137,27 +137,25 @@ struct VlcDec {  // backward over [start, pos]
     }
 };
 
-__device__ void zero_block(int32_t* o, int h, int w, int bw) {
-    for (int y = 0; y < h; ++y)
-        for (int x = 0; x < w; ++x) o[y * bw + x] = 0;
-}
-
 __global__ void ht_dec_kernel(const uint8_t* __restrict__ data,
                               const int32_t* __restrict__ lengths,
                               const int32_t* __restrict__ heights,
                               const int32_t* __restrict__ widths,
                               const int32_t* __restrict__ tab,
                               int32_t* __restrict__ out,
-                              uint8_t* __restrict__ wide_out, int n, int L, int bh,
+                              uint8_t* __restrict__ stopped, int n, int L, int bh,
                               int bw) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    wide_out[i] = 0;
+    stopped[i] = 0;
     const int len = lengths[i], h = heights[i], w = widths[i];
     const uint8_t* seg = data + (int64_t)i * L;
     if (len < 2 || len > L || h <= 0 || w <= 0) return;
     const int scup = (seg[len - 1] << 4) | (seg[len - 2] & 0xF);
-    if (scup < 2 || scup > len) return;
+    if (scup < 2 || scup > len) {
+        stopped[i] = 1;
+        return;
+    }
     const int ms_len = len - scup;
     int32_t* o = out + (int64_t)i * bh * bw;
     const int* mel_exp = tab + T_MEL_EXP;
@@ -167,14 +165,14 @@ __global__ void ht_dec_kernel(const uint8_t* __restrict__ data,
     VlcDec vlc{seg, len - 3, ms_len, 0, false, 0};
     {
         const int d = seg[len - 2];
-        vlc.tmp = (uint32_t)(d >> 4);
-        vlc.bits = 4 - ((vlc.tmp & 7) == 7 ? 1 : 0);
+        vlc.bits = 4 - (((d >> 4) & 7) == 7 ? 1 : 0);
+        vlc.tmp = (uint32_t)(d >> 4) & ((1u << vlc.bits) - 1);  // payload bits only
         vlc.unstuff = (d | 0xF) > 0x8F;
     }
 
     uint8_t e_buf[2][NQW_MAX + 2], cx_buf[2][NQW_MAX + 2];
     const int nqw = (w + 1) >> 1;
-    bool ok = true, wide = false;
+    bool ok = true;
     for (int qy = 0; qy < (h + 1) >> 1 && ok; ++qy) {
         const bool line0 = qy == 0;
         const int* tbl = tab + T_DEC + (line0 ? 0 : 1024);
@@ -246,16 +244,16 @@ __global__ void ht_dec_kernel(const uint8_t* __restrict__ data,
                 for (int k = 0; k < 4; ++k) {
                     if (!(rho[j] & (1 << k))) continue;
                     const int m = uq - ((e_k[j] >> k) & 1);
-                    if (m > MS_BIT_LIMIT) {
+                    if (m > MS_BITS) {
                         ok = false;
-                        wide = true;
                         break;
                     }
-                    const uint32_t v = ms.read(m) | ((uint32_t)((e_1[j] >> k) & 1) << m);
-                    const int32_t mu = (int32_t)(v >> 1) + 1;
-                    const int e_n = 32 - __clz(v | 1);
+                    const uint64_t v = (uint64_t)ms.read(m) |
+                                       ((uint64_t)((e_1[j] >> k) & 1) << m);
+                    const int64_t mu = (int64_t)(v >> 1) + 1;
+                    const int e_n = 64 - __clzll((long long)(v | 1));
                     const int y = 2 * qy + (k & 1), x = 2 * qi + (k >> 1);
-                    if (y < h && x < w) o[y * bw + x] = (v & 1) ? -mu : mu;
+                    if (y < h && x < w) o[y * bw + x] = (int32_t)((v & 1) ? -mu : mu);
                     if (k == 1) e_bl = e_n;
                     else if (k == 3) e_br = e_n;
                 }
@@ -266,24 +264,21 @@ __global__ void ht_dec_kernel(const uint8_t* __restrict__ data,
             }
         }
     }
-    if (!ok) {
-        zero_block(o, h, w, bw);
-        wide_out[i] = wide;
-    }
+    stopped[i] = !ok;
 }
 
 // data [n, L] uint8; lengths/heights/widths [n] int32; tab: ht_tables();
-// out [n, bh, bw] int32 (zeroed by the caller); wide [n] uint8.
+// out [n, bh, bw] int32 (zeroed by the caller); stopped [n] uint8.
 extern "C" int ht_cleanup_dec(const void* data, const void* lengths,
                               const void* heights, const void* widths,
-                              const void* tab, void* out, void* wide, int n, int L,
+                              const void* tab, void* out, void* stopped, int n, int L,
                               int bh, int bw, void* stream) {
     if (n <= 0) return 0;
     if (bw > 2 * NQW_MAX) return (int)cudaErrorInvalidValue;
     ht_dec_kernel<<<(n + BLOCK_THREADS - 1) / BLOCK_THREADS, BLOCK_THREADS, 0,
                     (cudaStream_t)stream>>>(
         (const uint8_t*)data, (const int32_t*)lengths, (const int32_t*)heights,
-        (const int32_t*)widths, (const int32_t*)tab, (int32_t*)out, (uint8_t*)wide,
+        (const int32_t*)widths, (const int32_t*)tab, (int32_t*)out, (uint8_t*)stopped,
         n, L, bh, bw);
     return (int)cudaGetLastError();
 }

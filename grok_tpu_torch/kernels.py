@@ -4,8 +4,12 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a)
 into its own shared library with a plain C interface, loaded with ctypes.
 The build happens at first use, in ``grok_tpu_torch/build/``, one nvcc
 process per source, all started together; a library is named after the
-hash of its source, so an edited source is rebuilt and an unchanged one is
-reused. A failed build raises: nothing falls back to a plain version.
+hash of its source and its flags, so an edited source, or one built with
+other flags, is rebuilt and an unchanged one is reused. A failed build
+raises: nothing falls back to a plain version. The float kernels of the
+9/7 path are built with -fmad=false (FLOAT_FLAGS): nvcc would otherwise
+contract a product and a sum into one fused multiply-add, which rounds once
+where the host path rounds twice.
 
 Every kernel's wrapper adds one to its ``Kernel.launches`` where it calls
 the library, and nowhere else (``launch_counts``/``reset_launch_counts``).
@@ -28,9 +32,12 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+FLOAT_FLAGS = ("-fmad=false",)
+
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
+_F32 = ctypes.c_float
 
 
 @dataclass
@@ -41,6 +48,7 @@ class Kernel:
     source: str  # file name under csrc/
     replaces: str  # the TPU kernel or XLA program it stands for
     argtypes: tuple
+    flags: tuple = ()  # nvcc flags beyond NVCC_FLAGS, the same for every kernel of a source
     launches: int = 0
 
     def call(self, *args) -> None:
@@ -84,6 +92,30 @@ KERNELS: dict[str, Kernel] = {
         Kernel("ebcot_decode", "ebcot_dec.cu",
                "grok_tpu/t1/ebcot_jax.py:760 _build_decoder (K5's decoder)",
                (_P,) * 7 + (_I32,) * 5 + (_P,)),
+        Kernel("dc_ict_fwd", "dc_ict.cu",
+               "grok_tpu/ops/jax_pipeline.py:69-84 (K2-fwd irreversible: DC shift + "
+               "ops/mct.py:48 ict_forward)",
+               (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+        Kernel("dwt97_fwd_level", "dwt97.cu",
+               "grok_tpu/ops/jax_pipeline.py:93 (K2-fwd irreversible: dwt.forward / "
+               "fwd97_axis)",
+               (_P, _I32, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+        Kernel("quant_deadzone", "quant97.cu",
+               "grok_tpu/ops/jax_pipeline.py:96-102 (K2-fwd irreversible: dead-zone "
+               "quantization)",
+               (_P, _P, _I32, _I32, _P, _P, _I32, _P), FLOAT_FLAGS),
+        Kernel("dequant_midbin", "quant97.cu",
+               "grok_tpu/ops/jax_pipeline.py:177-190 (K2-inv irreversible: mid-bin "
+               "dequantization)",
+               (_P, _P, _I32, _I32, _P, _P, _I32, _P), FLOAT_FLAGS),
+        Kernel("dwt97_inv_level", "dwt97.cu",
+               "grok_tpu/ops/jax_pipeline.py:191 (K2-inv irreversible: dwt.inverse / "
+               "inv97_axis)",
+               (_P, _I32, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+        Kernel("ict_inv_dc_round_clip", "ict_inv.cu",
+               "grok_tpu/ops/jax_pipeline.py:198-217 (K2-inv irreversible: "
+               "ops/mct.py:56 ict_inverse, DC shift, round, clip)",
+               (_P,) * 6 + (_I64,) + (_F32, _I32, _I32) * 3 + (_I32, _P), FLOAT_FLAGS),
     )
 }
 
@@ -99,9 +131,17 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+def source_flags(source: str) -> list[str]:
+    """The nvcc flags of a source: NVCC_FLAGS and its kernels' own."""
+    own = {k.flags for k in KERNELS.values() if k.source == source}
+    if len(own) != 1:
+        raise ValueError(f"{source}: its kernels disagree on their flags {own}")
+    return [*NVCC_FLAGS, *own.pop()]
+
+
 def _lib_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(source_flags(source)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 
@@ -128,7 +168,7 @@ def build_all() -> float:
         out = _lib_path(s)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(BUILD_DIR / f"{Path(s).stem}.log", "w")
-        p = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)],
+        p = subprocess.Popen([nvcc, *source_flags(s), "-o", str(tmp), str(CSRC / s)],
                              stdout=log, stderr=subprocess.STDOUT)
         procs.append((s, p, tmp, out, log))
     failed = []

@@ -1,52 +1,73 @@
-"""Transform chains of the reversible path: DC level shift, RCT and
-multi-level 5/3 lifting, Mallat-packed, forward and inverse.
+"""Transform chains, forward and inverse: DC level shift, RCT and
+multi-level 5/3 lifting (reversible), or ICT, multi-level 9/7 lifting and
+dead-zone quantization (irreversible), Mallat-packed.
 
-Counterpart of the reversible branches of grok_tpu/ops/jax_pipeline.py
-make_forward_fn (:43-111) and make_inverse_fn (:144-223) over ops/mct.py
-(dc shift :64, rct_forward :33, rct_inverse :41) and ops/dwt.py
-(fwd53_axis :112, forward :259, inv53_axis :128, inverse :285). Four
-kernels live here, each beside its plain torch version: K-a
-``dc_rct_fwd`` (csrc/dc_rct.cu), K-b ``dwt53_fwd_level`` (csrc/dwt53.cu),
-K-g ``dwt53_inv_level`` (csrc/dwt53_inv.cu) and K-h ``rct_inv_dc_clip``
-(csrc/rct_inv.cu). A wrapper takes the plain version only for CPU tensors;
-CUDA tensors launch the kernel. All arithmetic is int32 with arithmetic
-right shifts, so the kernels and their plain versions are bit-exact.
+Counterpart of grok_tpu/ops/jax_pipeline.py make_forward_fn (:43-111) and
+make_inverse_fn (:144-223) over ops/mct.py (dc shift :64, rct_forward :33,
+rct_inverse :41, ict_forward :48, ict_inverse :56) and ops/dwt.py
+(fwd53_axis :112, inv53_axis :128, fwd97_axis :148, inv97_axis :172,
+forward :259, inverse :285), held to grok_tpu's default host path
+(tile/tile_processor.py:280-390 and :1340-1660 over native/pipeline.cpp).
+Ten kernels live here, each beside its plain torch version:
+
+- reversible: K-a ``dc_rct_fwd`` (csrc/dc_rct.cu), K-b ``dwt53_fwd_level``
+  (csrc/dwt53.cu), K-g ``dwt53_inv_level`` (csrc/dwt53_inv.cu) and K-h
+  ``rct_inv_dc_clip`` (csrc/rct_inv.cu), all int32 with arithmetic right
+  shifts;
+- irreversible: K-j ``dc_ict_fwd`` (csrc/dc_ict.cu), K-k
+  ``dwt97_fwd_level`` and K-n ``dwt97_inv_level`` (csrc/dwt97.cu), K-l
+  ``quant_deadzone`` and K-m ``dequant_midbin`` (csrc/quant97.cu) and K-o
+  ``ict_inv_dc_round_clip`` (csrc/ict_inv.cu), float32 with every product
+  and every sum rounded on its own, as the host path computes them (the
+  kernels are built with -fmad=false and write __fmul_rn/__fadd_rn; the
+  plain versions are one tensor op per product and per sum, which neither
+  the CPU nor the card contracts).
+
+A wrapper takes the plain version only for CPU tensors; CUDA tensors
+launch the kernel. So the kernels and their plain versions are bit-exact.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
+from ..core.errors import UnsupportedFeatureError
 from ..core.rect import Rect
 
 
-def _check_plane(t: torch.Tensor, name: str) -> None:
-    if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
-        raise ValueError(f"{name}: want a contiguous 2-d int32 tensor, got "
+def _check_plane(t: torch.Tensor, name: str, dtype=torch.int32) -> None:
+    if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous 2-d {dtype} tensor, got "
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-# ============================================= K-a: DC shift + RCT
-def dc_rct_fwd(planes: list[torch.Tensor], dcs: list[int], rct: bool) -> list[torch.Tensor]:
-    """New int32 planes: ``planes[c] - dcs[c]``, then RCT on the first
-    three when ``rct`` (y = (r + 2g + b) >> 2, cb = b - g, cr = r - g)."""
+def _check_planes(planes: list[torch.Tensor], three: bool, dtype=torch.int32) -> torch.device:
+    """The planes' common device; ``three``: the first three planes must
+    have one shape (RCT or ICT)."""
     dev = planes[0].device
     for i, p in enumerate(planes):
-        _check_plane(p, f"plane {i}")
+        _check_plane(p, f"plane {i}", dtype)
         if p.device != dev:
             raise ValueError("all planes must share one device")
-    if rct and (len(planes) < 3 or not planes[0].shape == planes[1].shape == planes[2].shape):
-        raise ValueError("RCT needs three equally-sized planes")
-    if dev.type == "cpu":
-        return dc_rct_fwd_plain(planes, dcs, rct)
-    if dev.type != "cuda":
-        raise ValueError(f"dc_rct_fwd: unsupported device {dev}")
-    outs = [torch.empty_like(p) for p in planes]
-    k = kernels.KERNELS["dc_rct_fwd"]
-    stream = kernels.stream_ptr(dev)
+    if three and (len(planes) < 3 or not planes[0].shape == planes[1].shape == planes[2].shape):
+        raise ValueError("a colour transform needs three equally-sized planes")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _launch_dc_colour(name: str, planes: list[torch.Tensor], dcs: list[int], three: bool,
+                      dtype: torch.dtype) -> list[torch.Tensor]:
+    """K-a or K-j on CUDA planes: new ``dtype`` planes, the first three in
+    one launch when ``three``, each other plane alone (the two kernels take
+    the same arguments)."""
+    outs = [torch.empty(p.shape, dtype=dtype, device=p.device) for p in planes]
+    k = kernels.KERNELS[name]
+    stream = kernels.stream_ptr(planes[0].device)
     first = 0
-    if rct:
+    if three:
         k.call(*(p.data_ptr() for p in planes[:3]), *(o.data_ptr() for o in outs[:3]),
                planes[0].numel(), dcs[0], dcs[1], dcs[2], 1, stream)
         first = 3
@@ -54,6 +75,15 @@ def dc_rct_fwd(planes: list[torch.Tensor], dcs: list[int], rct: bool) -> list[to
         k.call(planes[c].data_ptr(), None, None, outs[c].data_ptr(), None, None,
                planes[c].numel(), dcs[c], 0, 0, 0, stream)
     return outs
+
+
+# ============================================= K-a: DC shift + RCT
+def dc_rct_fwd(planes: list[torch.Tensor], dcs: list[int], rct: bool) -> list[torch.Tensor]:
+    """New int32 planes: ``planes[c] - dcs[c]``, then RCT on the first
+    three when ``rct`` (y = (r + 2g + b) >> 2, cb = b - g, cr = r - g)."""
+    if _check_planes(planes, rct).type == "cpu":
+        return dc_rct_fwd_plain(planes, dcs, rct)
+    return _launch_dc_colour("dc_rct_fwd", planes, dcs, rct, torch.int32)
 
 
 def dc_rct_fwd_plain(planes, dcs, rct):
@@ -116,20 +146,39 @@ def dwt53_fwd_level_plain(plane, h, w, py, px):
 
 
 # ============================================= the chain
-def forward_transform(planes: list[torch.Tensor], rects: list[Rect],
-                      num_levels: list[int], dcs: list[int], rct: bool) -> list[torch.Tensor]:
-    """DC shift + RCT + multi-level 5/3 of a tile's components; returns
-    the Mallat-packed int32 coefficient planes (resolution r occupies the
-    top-left ceil(rect / 2^(NL-r)))."""
-    out = dc_rct_fwd(planes, dcs, rct)
-    for plane, rect, nl in zip(out, rects, num_levels):
-        cur = rect
-        for _ in range(nl):
-            if cur.height == 0 or cur.width == 0:
-                break
-            dwt53_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
-            cur = cur.ceil_div_pow2(1)
+def _levels(rect: Rect, nl: int) -> list[Rect]:
+    """The rect of each decomposition level, finest first, stopping at an
+    empty one."""
+    out = []
+    cur = rect
+    for _ in range(nl):
+        if cur.height == 0 or cur.width == 0:
+            break
+        out.append(cur)
+        cur = cur.ceil_div_pow2(1)
     return out
+
+
+def forward_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels: list[int],
+                      dcs: list[int], mct: bool, irreversible: bool = False,
+                      bands: list[list[tuple]] | None = None) -> list[torch.Tensor]:
+    """DC shift, colour transform (RCT or ICT when ``mct``) and multi-level
+    5/3 or 9/7 of a tile's components; returns the Mallat-packed int32
+    coefficient planes (resolution r occupies the top-left
+    ceil(rect / 2^(NL-r))). 9/7 coefficients are quantized per band:
+    ``bands[c]`` lists component c's (oy, ox, h, w, step) in the packed
+    plane."""
+    if not irreversible:
+        out = dc_rct_fwd(planes, dcs, mct)
+        for plane, rect, nl in zip(out, rects, num_levels):
+            for cur in _levels(rect, nl):
+                dwt53_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
+        return out
+    out = dc_ict_fwd(planes, dcs, mct)
+    for plane, rect, nl in zip(out, rects, num_levels):
+        for cur in _levels(rect, nl):
+            dwt97_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
+    return [quant_deadzone(plane, b) for plane, b in zip(out, bands)]
 
 
 # ============================================= K-g: one inverse 5/3 level
@@ -192,17 +241,9 @@ def rct_inv_dc_clip(planes: list[torch.Tensor], dcs: list[int],
     """In place: inverse RCT on the first three planes when ``rct`` (g = y -
     ((cb + cr) >> 2), r = cr + g, b = cb + g), then ``plane + dc`` clipped
     to ``ranges[c]`` = (lo, hi) on every plane. Returns the planes."""
-    dev = planes[0].device
-    for i, p in enumerate(planes):
-        _check_plane(p, f"plane {i}")
-        if p.device != dev:
-            raise ValueError("all planes must share one device")
-    if rct and (len(planes) < 3 or not planes[0].shape == planes[1].shape == planes[2].shape):
-        raise ValueError("RCT needs three equally-sized planes")
+    dev = _check_planes(planes, rct)
     if dev.type == "cpu":
         return rct_inv_dc_clip_plain(planes, dcs, ranges, rct)
-    if dev.type != "cuda":
-        raise ValueError(f"rct_inv_dc_clip: unsupported device {dev}")
     k = kernels.KERNELS["rct_inv_dc_clip"]
     stream = kernels.stream_ptr(dev)
     first = 0
@@ -229,18 +270,278 @@ def rct_inv_dc_clip_plain(planes, dcs, ranges, rct):
 
 
 def inverse_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels: list[int],
-                      precs: list[int], signeds: list[bool], rct: bool) -> list[torch.Tensor]:
-    """Inverse 5/3 of every level, coarsest first, then inverse RCT, DC
-    shift and clip, in place on a tile's Mallat-packed int32 planes;
-    returns the component samples."""
-    for plane, rect, nl in zip(planes, rects, num_levels):
-        chain = [rect]
-        for _ in range(nl):
-            chain.append(chain[-1].ceil_div_pow2(1))
-        for cur in reversed(chain[:nl]):
-            if cur.height and cur.width:
-                dwt53_inv_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
+                      precs: list[int], signeds: list[bool], mct: bool,
+                      irreversible: bool = False,
+                      bands: list[list[tuple]] | None = None) -> list[torch.Tensor]:
+    """Inverse of ``forward_transform`` on a tile's Mallat-packed int32
+    planes: (9/7: mid-bin dequantization per band,) the inverse 5/3 or 9/7
+    of every level, coarsest first, then the inverse colour transform, DC
+    shift, rounding and clip; returns the int32 component samples (the
+    5/3 chain works in place)."""
     dcs = [0 if s else 1 << (p - 1) for p, s in zip(precs, signeds)]
     ranges = [(-(1 << (p - 1)), (1 << (p - 1)) - 1) if s else (0, (1 << p) - 1)
               for p, s in zip(precs, signeds)]
-    return rct_inv_dc_clip(planes, dcs, ranges, rct)
+    inv = dwt97_inv_level if irreversible else dwt53_inv_level
+    if irreversible:
+        planes = [dequant_midbin(p, b) for p, b in zip(planes, bands)]
+    for plane, rect, nl in zip(planes, rects, num_levels):
+        for cur in reversed(_levels(rect, nl)):
+            inv(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
+    if irreversible:
+        return ict_inv_dc_round_clip(planes, dcs, ranges, mct)
+    return rct_inv_dc_clip(planes, dcs, ranges, mct)
+
+
+# ============================================= 9/7 constants
+# T.800 F.4.8.2 lifting constants and the ICT matrices (T.800 G-1/G-2),
+# rounded to float32 as the host path uses them (ops/dwt.py:29-33 under
+# numpy's weak scalar promotion; ops/mct.py:15, :23; native/pipeline.cpp:28-33)
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+LIFT97 = tuple(_f32(v) for v in (-1.586134342059924, -0.052980118572961, 0.882911075530934,
+                                 0.443506852043971, 1.230174104914001, 1.0 / 1.230174104914001))
+ALPHA, BETA, GAMMA, DELTA, K97, INV_K97 = LIFT97
+ICT_FWD = tuple(tuple(_f32(v) for v in row) for row in (
+    (0.299, 0.587, 0.114), (-0.168736, -0.331264, 0.5), (0.5, -0.418688, -0.081312)))
+ICT_INV = tuple(tuple(_f32(v) for v in row) for row in (
+    (1.0, 0.0, 1.402), (1.0, -0.344136, -0.714136), (1.0, 1.772, 0.0)))
+# the longest line K-k and K-n stage in shared memory
+MAX_LINE_97 = 50 * 1024
+
+
+# ============================================= K-j: DC shift + ICT
+def dc_ict_fwd(planes: list[torch.Tensor], dcs: list[int], ict: bool) -> list[torch.Tensor]:
+    """New float32 planes: ``float(planes[c] - dcs[c])``, then the ICT on
+    the first three when ``ict`` (y = m00 r + m01 g + m02 b, ..., each
+    product and each sum rounded)."""
+    if _check_planes(planes, ict).type == "cpu":
+        return dc_ict_fwd_plain(planes, dcs, ict)
+    return _launch_dc_colour("dc_ict_fwd", planes, dcs, ict, torch.float32)
+
+
+def _dot3(m: tuple, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """m[0] a + m[1] b + m[2] c, left to right, skipping zero terms as the
+    host path does (one tensor op per product and per sum)."""
+    out = None
+    for w, v in zip(m, (a, b, c)):
+        if w == 0.0:
+            continue
+        t = v if w == 1.0 else v * w
+        out = t if out is None else out + t
+    return out
+
+
+def dc_ict_fwd_plain(planes, dcs, ict):
+    shifted = [(p - dc).to(torch.float32) for p, dc in zip(planes, dcs)]
+    if ict:
+        r, g, b = shifted[:3]
+        shifted[:3] = [_dot3(row, r, g, b) for row in ICT_FWD]
+    return shifted
+
+
+# ============================================= K-k: one 9/7 level
+def _dwt97_level(name: str, plain, plane: torch.Tensor, h: int, w: int, py: int,
+                 px: int) -> None:
+    _check_plane(plane, "plane", torch.float32)
+    if h > plane.shape[0] or w > plane.shape[1]:
+        raise ValueError("level region exceeds the plane")
+    if h == 0 or w == 0:
+        return
+    dev = plane.device
+    if dev.type == "cpu":
+        plain(plane, h, w, py, px)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if max(h, w) > MAX_LINE_97:
+        raise UnsupportedFeatureError(
+            f"outside the ported slices: 9/7 lines longer than {MAX_LINE_97} samples")
+    kernels.KERNELS[name].call(plane.data_ptr(), plane.stride(0), h, w, py, px,
+                               kernels.stream_ptr(dev))
+
+
+def dwt97_fwd_level(plane: torch.Tensor, h: int, w: int, py: int, px: int) -> None:
+    """One forward 9/7 level, in place on a float32 plane: the top-left
+    h x w becomes [[LL, HL], [LH, HH]]; py/px are the level rect's origin
+    parities. A line of one sample is left as it is."""
+    _dwt97_level("dwt97_fwd_level", dwt97_fwd_level_plain, plane, h, w, py, px)
+
+
+def _s_nbrs(parity: int, dn: int, sn: int, device):
+    """Indices into d of each s sample's left and right neighbour."""
+    i = torch.arange(sn, device=device)
+    if parity == 0:
+        return (i - 1).clamp(min=0), i.clamp(max=dn - 1)
+    return i, (i + 1).clamp(max=dn - 1)
+
+
+def _d_nbrs(parity: int, dn: int, sn: int, device):
+    """Indices into s of each d sample's left and right neighbour."""
+    j = torch.arange(dn, device=device)
+    if parity == 0:
+        return j, (j + 1).clamp(max=sn - 1)
+    return (j - 1).clamp(min=0), j.clamp(max=sn - 1)
+
+
+def _lift(x: torch.Tensor, axis: int, nbr, coef: float, sign: int,
+          src: torch.Tensor) -> torch.Tensor:
+    """x +- coef * (src[l] + src[r]), one rounding per op."""
+    left, right = nbr
+    t = (src.index_select(axis, left) + src.index_select(axis, right)) * coef
+    return x + t if sign > 0 else x - t
+
+
+def _fwd97_axis(x: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
+    n = x.shape[axis]
+    if n == 1:
+        return x
+    s = x.index_select(axis, torch.arange(parity, n, 2, device=x.device))
+    d = x.index_select(axis, torch.arange(1 - parity, n, 2, device=x.device))
+    sn, dn = s.shape[axis], d.shape[axis]
+    dn_ = _d_nbrs(parity, dn, sn, x.device)
+    sn_ = _s_nbrs(parity, dn, sn, x.device)
+    d = _lift(d, axis, dn_, ALPHA, 1, s)
+    s = _lift(s, axis, sn_, BETA, 1, d)
+    d = _lift(d, axis, dn_, GAMMA, 1, s)
+    s = _lift(s, axis, sn_, DELTA, 1, d)
+    return torch.cat([s * INV_K97, d * K97], dim=axis)
+
+
+def dwt97_fwd_level_plain(plane, h, w, py, px):
+    sub = _fwd97_axis(plane[:h, :w], 0, py)
+    plane[:h, :w] = _fwd97_axis(sub, 1, px)
+
+
+# ============================================= K-n: one inverse 9/7 level
+def dwt97_inv_level(plane: torch.Tensor, h: int, w: int, py: int, px: int) -> None:
+    """One inverse 9/7 level, in place on a float32 plane: the
+    Mallat-packed top-left h x w becomes natural order."""
+    _dwt97_level("dwt97_inv_level", dwt97_inv_level_plain, plane, h, w, py, px)
+
+
+def _inv97_axis(y: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
+    n = y.shape[axis]
+    if n == 1:
+        return y
+    sn = n // 2 if parity else (n + 1) // 2
+    dn = n - sn
+    s = y.narrow(axis, 0, sn) * K97
+    d = y.narrow(axis, sn, dn) * INV_K97
+    dn_ = _d_nbrs(parity, dn, sn, y.device)
+    sn_ = _s_nbrs(parity, dn, sn, y.device)
+    s = _lift(s, axis, sn_, DELTA, -1, d)
+    d = _lift(d, axis, dn_, GAMMA, -1, s)
+    s = _lift(s, axis, sn_, BETA, -1, d)
+    d = _lift(d, axis, dn_, ALPHA, -1, s)
+    out = torch.empty_like(y)
+    out.index_copy_(axis, torch.arange(parity, n, 2, device=y.device), s)
+    out.index_copy_(axis, torch.arange(1 - parity, n, 2, device=y.device), d)
+    return out
+
+
+def dwt97_inv_level_plain(plane, h, w, py, px):
+    sub = _inv97_axis(plane[:h, :w], 1, px)
+    plane[:h, :w] = _inv97_axis(sub, 0, py)
+
+
+# ============================================= K-l / K-m: band quantization
+def _band_table(bands: list[tuple], dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' band table: int32 [nb, 4] (oy, ox, h, w) and float32
+    [nb] steps (rounded to float32 as the host path's _band_arrays)."""
+    rects = torch.tensor([b[:4] for b in bands], dtype=torch.int32).reshape(-1, 4)
+    steps = torch.tensor([b[4] for b in bands], dtype=torch.float32)
+    return rects.to(dev), steps.to(dev)
+
+
+def quant_deadzone(plane: torch.Tensor, bands: list[tuple]) -> torch.Tensor:
+    """Dead-zone quantization of a packed float32 plane: int32
+    sign(v) * floor(|v| / step) with each band's float32 step; ``bands``
+    lists (oy, ox, h, w, step) and tiles the plane."""
+    _check_plane(plane, "plane", torch.float32)
+    dev = plane.device
+    if dev.type == "cpu":
+        return quant_deadzone_plain(plane, bands)
+    out = torch.empty(plane.shape, dtype=torch.int32, device=dev)
+    rects, steps = _band_table(bands, dev)
+    kernels.KERNELS["quant_deadzone"].call(
+        plane.data_ptr(), out.data_ptr(), plane.shape[0], plane.shape[1],
+        rects.data_ptr(), steps.data_ptr(), len(bands), kernels.stream_ptr(dev))
+    return out
+
+
+def quant_deadzone_plain(plane, bands):
+    out = torch.zeros(plane.shape, dtype=torch.int32, device=plane.device)
+    for oy, ox, bh, bw, step in bands:
+        v = plane[oy:oy + bh, ox:ox + bw]
+        # a tensor divisor: CUDA divides by a scalar as a product with its
+        # reciprocal, which is not IEEE division
+        q = torch.floor(v.abs() / torch.full_like(v, step)).to(torch.int32)
+        out[oy:oy + bh, ox:ox + bw] = torch.where(v < 0, -q, q)
+    return out
+
+
+def dequant_midbin(plane: torch.Tensor, bands: list[tuple]) -> torch.Tensor:
+    """Mid-bin dequantization of a packed int32 plane: float32
+    sign(q) * (|q| + 0.5) * step, 0 for q = 0, with each band's float32
+    step."""
+    _check_plane(plane, "plane")
+    dev = plane.device
+    if dev.type == "cpu":
+        return dequant_midbin_plain(plane, bands)
+    out = torch.empty(plane.shape, dtype=torch.float32, device=dev)
+    rects, steps = _band_table(bands, dev)
+    kernels.KERNELS["dequant_midbin"].call(
+        plane.data_ptr(), out.data_ptr(), plane.shape[0], plane.shape[1],
+        rects.data_ptr(), steps.data_ptr(), len(bands), kernels.stream_ptr(dev))
+    return out
+
+
+def dequant_midbin_plain(plane, bands):
+    out = torch.zeros(plane.shape, dtype=torch.float32, device=plane.device)
+    for oy, ox, bh, bw, step in bands:
+        q = plane[oy:oy + bh, ox:ox + bw]
+        mag = q.abs().to(torch.float32)
+        rec = torch.where(mag > 0, (mag + 0.5) * _f32(step), 0.0)
+        out[oy:oy + bh, ox:ox + bw] = torch.where(q < 0, -rec, rec)
+    return out
+
+
+# ============================================= K-o: inverse ICT + DC + round + clip
+def ict_inv_dc_round_clip(planes: list[torch.Tensor], dcs: list[int],
+                          ranges: list[tuple[int, int]], ict: bool) -> list[torch.Tensor]:
+    """New int32 planes from float32 ones: the inverse ICT on the first
+    three when ``ict`` (r = y + 1.402 cr, g = y - 0.344136 cb - 0.714136 cr,
+    b = y + 1.772 cb), then floor(v + float32(0.5 + dc)) clipped to
+    ``ranges[c]``; NaN gives the low end (native/pipeline.cpp:597-611)."""
+    dev = _check_planes(planes, ict, torch.float32)
+    if dev.type == "cpu":
+        return ict_inv_dc_round_clip_plain(planes, dcs, ranges, ict)
+    outs = [torch.empty(p.shape, dtype=torch.int32, device=dev) for p in planes]
+    k = kernels.KERNELS["ict_inv_dc_round_clip"]
+    stream = kernels.stream_ptr(dev)
+    adds = [_f32(0.5 + dc) for dc in dcs]
+    first = 0
+    if ict:
+        k.call(*(p.data_ptr() for p in planes[:3]), *(o.data_ptr() for o in outs[:3]),
+               planes[0].numel(), *(v for c in range(3) for v in (adds[c], *ranges[c])),
+               1, stream)
+        first = 3
+    for c in range(first, len(planes)):
+        k.call(planes[c].data_ptr(), None, None, outs[c].data_ptr(), None, None,
+               planes[c].numel(), adds[c], *ranges[c], 0.0, 0, 0, 0.0, 0, 0, 0, stream)
+    return outs
+
+
+def ict_inv_dc_round_clip_plain(planes, dcs, ranges, ict):
+    vals = list(planes)
+    if ict:
+        y, cb, cr = planes[:3]
+        vals[:3] = [_dot3(row, y, cb, cr) for row in ICT_INV]
+    outs = []
+    for v, dc, (lo, hi) in zip(vals, dcs, ranges):
+        f = torch.floor(v + _f32(0.5 + dc))
+        f = torch.where(f > lo, f, float(lo))  # NaN -> lo
+        outs.append(torch.where(f > hi, float(hi), f).to(torch.int32))
+    return outs

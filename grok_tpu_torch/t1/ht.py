@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.errors import UnsupportedFeatureError
 from .ht_tables_data import TABLE0, TABLE1
 
+# the widest MagSgn field a decode reads (native/ht_coder.cpp decode_block)
+MS_BITS = 32
 # MEL run-length state machine exponents (T.814 Table C.3)
 MEL_EXP = [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5]
 
@@ -356,8 +357,10 @@ class VlcDec:
         self.pos = len(data) - 2
         d = data[self.pos] if self.pos >= 0 else 0
         self.pos -= 1
-        self.tmp = d >> 4
-        self.bits = 4 - (1 if (self.tmp & 7) == 7 else 0)
+        self.bits = 4 - (1 if ((d >> 4) & 7) == 7 else 0)
+        # only ``bits`` bits of the nibble are payload (the reference's native
+        # decoder masks the rest; a valid stream has a zero there)
+        self.tmp = (d >> 4) & ((1 << self.bits) - 1)
         self.unstuff = (d | 0xF) > 0x8F
 
     def _read_byte(self):
@@ -464,18 +467,19 @@ def _dec_u_pair(vlc: VlcDec, line0: bool, u_off0: int, u_off1: int,
     return u0, u1
 
 
-def decode_cleanup(seg: bytes, h: int, w: int, ms_bit_limit: int | None = None):
-    """Decode an HT cleanup codeword segment into signed coefficients.
-
-    Raises ValueError on an invalid codeword and, with ``ms_bit_limit``,
-    UnsupportedFeatureError on a MagSgn field wider than that many bits (the
-    decode kernel's int32 limit, t1/ht_cuda.py)."""
+def decode_cleanup(seg: bytes, h: int, w: int) -> tuple[np.ndarray, bool]:
+    """Decode an HT cleanup codeword segment into signed coefficients, as
+    grok_tpu's default decoder does (native/ht_coder.cpp decode_block):
+    returns (coefficients, whole). An invalid CxtVLC codeword or a MagSgn
+    field over MS_BITS bits stops the decode there (whole False), keeping
+    what was written; an invalid header (Scup outside [2, Lcup]) gives
+    zeros. Values are exact here; the int32 output wraps them."""
     out = np.zeros((h, w), dtype=np.int64)
     if len(seg) < 2:
-        return out
+        return out, True
     scup = (seg[-1] << 4) | (seg[-2] & 0xF)
     if scup < 2 or scup > len(seg):
-        return out
+        return out, False
     ms = MsDec(seg[: len(seg) - scup])
     mel = MelDec(seg[len(seg) - scup:])
     vlc = VlcDec(seg[len(seg) - scup:])
@@ -504,7 +508,7 @@ def decode_cleanup(seg: bytes, h: int, w: int, ms_bit_limit: int | None = None):
                 else:
                     entry = tbl[c_q][vlc.peek(7)]
                     if entry is None:
-                        raise ValueError("invalid VLC codeword")
+                        return out, False  # invalid codeword
                     rho, u_off, e_k, e_1, ln = entry
                     vlc.advance(ln)
                 if line0 or not (rho & (rho - 1)):
@@ -533,9 +537,8 @@ def decode_cleanup(seg: bytes, h: int, w: int, ms_bit_limit: int | None = None):
                     if not (rho & (1 << k)):
                         continue
                     m = uq - ((e_k >> k) & 1)
-                    if ms_bit_limit is not None and m > ms_bit_limit:
-                        raise UnsupportedFeatureError(
-                            f"HT decode of MagSgn fields wider than {ms_bit_limit} bits")
+                    if m > MS_BITS:
+                        return out, False
                     v = ms.read(m) | (((e_1 >> k) & 1) << m)
                     mu = (v >> 1) + 1
                     e_n = (v | 1).bit_length()
@@ -553,4 +556,4 @@ def decode_cleanup(seg: bytes, h: int, w: int, ms_bit_limit: int | None = None):
                 cur_cx[qi + 1] = (rho & 8) >> 3
         prev_e = cur_e
         prev_cx = cur_cx
-    return out
+    return out, True

@@ -5,9 +5,10 @@ grok_tpu/t1/ht_jax_dec.py (K4, ``decode_cleanup_batch`` :484). K-e
 ``ht_cleanup_enc`` (csrc/ht_enc.cu) writes each codeblock's finished
 cleanup segment, stuffing, termination and the Scup patch included, so no
 host compaction follows it. K-f ``ht_cleanup_dec`` (csrc/ht_dec.cu) reads
-each segment directly and writes what the scalar decoder gives, zeros
-where that raises; it flags the codeblocks whose MagSgn fields are too wide
-for int32, and ``decode_cleanup_batch`` refuses a stream that has one.
+each segment directly and writes what the scalar decoder gives: on a
+corrupt segment (an invalid codeword, or a MagSgn field over 32 bits) it
+stops where grok_tpu's default decoder stops, keeping what was written,
+and flags the codeblock.
 
 Each kernel's plain version runs the scalar coder of t1/ht.py block by
 block. A wrapper takes the plain version only for tensors on the CPU; for
@@ -29,9 +30,6 @@ from .ebcot_cuda import _check
 # magnitudes at or above this are refused (the reference's device range,
 # ht_jax.DEVICE_MAG_LIMIT): MagSgn fields stay within 25 bits
 ENC_MAG_LIMIT = 1 << 24
-# K-f decodes MagSgn fields of at most this many bits (v | e_1 << m must fit
-# 31 bits for the int32 output); a stream with a wider one is refused
-MS_BIT_LIMIT = 30
 
 # int32 table layout of csrc/ht_enc.cu and csrc/ht_dec.cu
 _T_ENC, _T_DEC, _T_MEL_EXP, _T_U = 0, 4096, 6144, 6157
@@ -143,11 +141,10 @@ def ht_cleanup_enc_plain(coeffs, heights, widths, cap: int):
 def ht_cleanup_dec(data: torch.Tensor, lengths: torch.Tensor, heights: torch.Tensor,
                    widths: torch.Tensor, tab: torch.Tensor, bh: int,
                    bw: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Decode cleanup segments: (out [n, bh, bw] int32, wide [n] bool). data
-    [n, L] uint8, lengths/heights/widths [n] int32, tab: ht_tables(). out
-    is t1/ht.py decode_cleanup's, zeros where that raises ValueError (an
-    invalid codeword); a codeblock with a MagSgn field over MS_BIT_LIMIT
-    bits has wide True and zeros."""
+    """Decode cleanup segments: (out [n, bh, bw] int32, stopped [n] bool).
+    data [n, L] uint8, lengths/heights/widths [n] int32, tab: ht_tables().
+    out is t1/ht.py decode_cleanup's, wrapped to int32; stopped marks the
+    codeblocks whose decode stopped early on a corrupt segment."""
     n, L = data.shape
     dev = data.device
     _check(data, "data", torch.uint8, 2, dev)
@@ -163,30 +160,25 @@ def ht_cleanup_dec(data: torch.Tensor, lengths: torch.Tensor, heights: torch.Ten
     if dev.type != "cuda":
         raise ValueError(f"ht_cleanup_dec: unsupported device {dev}")
     out = torch.zeros((n, bh, bw), dtype=torch.int32, device=dev)
-    wide = torch.empty(n, dtype=torch.uint8, device=dev)
+    stopped = torch.empty(n, dtype=torch.uint8, device=dev)
     kernels.KERNELS["ht_cleanup_dec"].call(
         data.data_ptr(), lengths.data_ptr(), heights.data_ptr(), widths.data_ptr(),
-        tab.data_ptr(), out.data_ptr(), wide.data_ptr(), n, L, bh, bw,
+        tab.data_ptr(), out.data_ptr(), stopped.data_ptr(), n, L, bh, bw,
         kernels.stream_ptr(dev))
-    return out, wide.bool()
+    return out, stopped.bool()
 
 
 def ht_cleanup_dec_plain(data, lengths, heights, widths, bh: int, bw: int):
     """Plain form of K-f: ht.decode_cleanup block by block."""
     n = data.shape[0]
     d = data.numpy()
-    out = np.zeros((n, bh, bw), dtype=np.int32)
-    wide = np.zeros(n, dtype=bool)
+    out = np.zeros((n, bh, bw), dtype=np.int64)
+    stopped = np.zeros(n, dtype=bool)
     for i, (ln, h, w) in enumerate(zip(lengths.tolist(), heights.tolist(), widths.tolist())):
-        if h <= 0 or w <= 0:
-            continue
-        try:
-            out[i, :h, :w] = ht.decode_cleanup(d[i, :ln].tobytes(), h, w, MS_BIT_LIMIT)
-        except UnsupportedFeatureError:
-            wide[i] = True
-        except ValueError:
-            pass
-    return torch.from_numpy(out), torch.from_numpy(wide)
+        if h > 0 and w > 0 and 2 <= ln <= d.shape[1]:
+            out[i, :h, :w], whole = ht.decode_cleanup(d[i, :ln].tobytes(), h, w)
+            stopped[i] = not whole
+    return torch.from_numpy(out.astype(np.int32)), torch.from_numpy(stopped)
 
 
 # ==================================================== public entry points
@@ -221,15 +213,11 @@ def decode_cleanup_batch(data: torch.Tensor, lengths, heights, widths, bh: int, 
                          clock: StageClock | None = None) -> torch.Tensor:
     """Decode a batch of HT cleanup segments on the device holding ``data``
     (counterpart of ht_jax_dec.decode_cleanup_batch): [n, bh, bw] int32
-    coefficients equal to t1/ht.py decode_cleanup's, zeros where that
-    raises ValueError. Raises UnsupportedFeatureError for a MagSgn field
-    over MS_BIT_LIMIT bits, which no 8-16-bit lossless stream reaches."""
+    coefficients equal to grok_tpu's default decoder's (native/ht_coder.cpp
+    ht_decode_cblks_c), corrupt segments included."""
     clock = clock or StageClock(data.device, None)
     dev = data.device
-    out, wide = ht_cleanup_dec(data.contiguous(), _int32(lengths, dev), _int32(heights, dev),
-                               _int32(widths, dev), ht_tables(dev), bh, bw)
+    out, _ = ht_cleanup_dec(data.contiguous(), _int32(lengths, dev), _int32(heights, dev),
+                            _int32(widths, dev), ht_tables(dev), bh, bw)
     clock.mark("t1_ht_dec")
-    if bool(wide.any()):
-        raise UnsupportedFeatureError(
-            f"HT decode of MagSgn fields wider than {MS_BIT_LIMIT} bits")
     return out

@@ -207,54 +207,63 @@ def encode_packet(prc_ctxs: list[PrecinctCtx], layer: int) -> bytes:
 
 
 def decode_packet(data, pos: int, prc_ctxs: list[PrecinctCtx], layer: int,
-                  drop: bool = False) -> int:
+                  drop: bool = False) -> tuple[int, bool]:
     """Parse one packet starting at data[pos]; returns the position after
-    it. Each included codeblock's contribution is appended to its
-    segments, unless ``drop``: then the packet (of a layer the caller does
-    not want) is parsed only to keep the stream position and the header
-    state, and its bodies are skipped."""
+    it and whether the packet was whole. Each included codeblock's
+    contribution is appended to its segments, unless ``drop``: then the
+    packet (of a layer the caller does not want) is parsed only to keep
+    the stream position and the header state, and its bodies are skipped.
+
+    A corrupt header or a body that runs past the end of ``data`` ends the
+    tile's T2 (False): the contributions before it whose bytes are present
+    are kept, those of a corrupt header are not (the reference's default
+    native T2, grok_tpu/t2/native_t2.py:262-279 over native/t2_codec.cpp
+    t2_decode_packets)."""
     n = len(data)
     bio = BitReader(data, pos)
     contributions: list[tuple[CblkDec, int, int]] = []  # (cblk, npasses, nbytes)
-    if bio.read_bit():
-        for ctx in prc_ctxs:
-            for geom, cb in zip(ctx.prc.cblks, ctx.cblks):
-                if cb is None:
-                    continue
-                if not cb.included:
-                    inc = ctx.incl_tree.decode(bio, geom.cx, geom.cy, layer + 1)
-                else:
-                    inc = bool(bio.read_bit())
-                if not inc:
-                    continue
-                if not cb.included:
-                    cb.numbps = ctx.band.num_bps - ctx.imsb_tree.decode_value(
-                        bio, geom.cx, geom.cy)
-                    if cb.numbps < 0:
-                        raise CorruptPacketError("negative numbps")
-                    cb.included = True
-                npl = read_numpasses(bio)
-                while bio.read_bit():
-                    cb.lblock += 1
-                    if cb.lblock > 32:
-                        raise CorruptPacketError("runaway lblock")
-                if cb.passes_seen + npl > 165:
-                    raise CorruptPacketError("too many coding passes")
-                for np_s in _segment_splits(cb.style, cb.passes_seen, npl):
-                    contributions.append(
-                        (cb, np_s, bio.read_bits(cb.lblock + _floor_log2(np_s))))
-                cb.passes_seen += npl
+    try:
+        if bio.read_bit():
+            for ctx in prc_ctxs:
+                for geom, cb in zip(ctx.prc.cblks, ctx.cblks):
+                    if cb is None:
+                        continue
+                    if not cb.included:
+                        inc = ctx.incl_tree.decode(bio, geom.cx, geom.cy, layer + 1)
+                    else:
+                        inc = bool(bio.read_bit())
+                    if not inc:
+                        continue
+                    if not cb.included:
+                        cb.numbps = ctx.band.num_bps - ctx.imsb_tree.decode_value(
+                            bio, geom.cx, geom.cy)
+                        if cb.numbps < 0:
+                            raise CorruptPacketError("negative numbps")
+                        cb.included = True
+                    npl = read_numpasses(bio)
+                    while bio.read_bit():
+                        cb.lblock += 1
+                        if cb.lblock > 32:
+                            raise CorruptPacketError("runaway lblock")
+                    if cb.passes_seen + npl > 165:
+                        raise CorruptPacketError("too many coding passes")
+                    for np_s in _segment_splits(cb.style, cb.passes_seen, npl):
+                        contributions.append(
+                            (cb, np_s, bio.read_bits(cb.lblock + _floor_log2(np_s))))
+                    cb.passes_seen += npl
+    except CorruptPacketError:
+        return pos, False
     bio.align()
     pos = bio.byte_pos
     for cb, npl, nbytes in contributions:
         if pos + nbytes > n:
-            raise CorruptPacketError("packet body truncated")
+            return pos, False  # body truncated
         if not drop:
             cb.segments.append(bytes(data[pos:pos + nbytes]))
             cb.seg_passes.append(npl)
             cb.npasses += npl
         pos += nbytes
-    return pos
+    return pos, True
 
 
 def merge_segments(style: int, piece_bytes: list[int], piece_passes: list[int]) -> list[int]:

@@ -45,6 +45,7 @@ class BandGeom:
     orient: int  # BAND_*
     rect: Rect  # band coords
     num_bps: int = 0  # Mb: max bitplanes incl. guard bits
+    step: float = 1.0  # quantization step (9/7; 1.0 when reversible)
     precincts: list[PrecinctGeom] = field(default_factory=list)
 
 

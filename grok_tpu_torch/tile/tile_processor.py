@@ -1,6 +1,6 @@
-"""Per-tile pipelines. Encode: transform -> codeblock gather -> T1 -> T2;
-decode (Part-1 and HT): T2 -> T1 -> codeblock scatter -> inverse
-transform.
+"""Per-tile pipelines. Encode: transform (5/3, or 9/7 and quantization)
+-> codeblock gather -> T1 -> T2; decode (Part-1 and HT): T2 -> T1 ->
+codeblock scatter -> inverse transform (5/3, or dequantization and 9/7).
 
 Counterpart of grok_tpu/tile/tile_processor.py: the device branch of
 compress (:249-279), _entropy_and_t2 (:400) with its HT branch
@@ -126,19 +126,42 @@ class TileProcessor:
         Returns the tile body: its packets in progression order."""
         clock = clock or StageClock(self.device, None)
         siz, tcp = self.siz, self.tcp
-        ncomp = siz.num_comps
-        for c in range(ncomp):
-            apply_band_quant(self.geoms[c], tcp.tccps[c])
+        self._apply_band_quant()
         planes = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
                   for a in comp_arrays]
         clock.mark("upload")
         dcs = [0 if c.signed else 1 << (c.prec - 1) for c in siz.comps]
         coeffs = forward_transform(
             planes, [g.rect for g in self.geoms],
-            [t.num_resolutions - 1 for t in tcp.tccps], dcs,
-            rct=tcp.mct == 1 and ncomp >= 3)
+            [t.num_resolutions - 1 for t in tcp.tccps], dcs, self._mct(),
+            self.irreversible, self.band_tables() if self.irreversible else None)
         clock.mark("transform")
         return self._entropy_and_t2(coeffs, clock)
+
+    @property
+    def irreversible(self) -> bool:
+        """9/7 for every component when the first component's style says so
+        (the reference's tile_processor reads tccps[0] too)."""
+        return self.tcp.tccps[0].irreversible
+
+    def _mct(self) -> bool:
+        return self.tcp.mct == 1 and self.siz.num_comps >= 3
+
+    def _apply_band_quant(self) -> None:
+        """Each band's Mb and step; RCT (never ICT) widens chroma by a bit
+        (the reference's _comp_prec, :196)."""
+        for c, (g, t) in enumerate(zip(self.geoms, self.tcp.tccps)):
+            prec = self.siz.comps[c].prec
+            if self.tcp.mct == 1 and not t.irreversible and c in (1, 2):
+                prec += 1
+            apply_band_quant(g, t, prec)
+
+    def band_tables(self) -> list[list[tuple[int, int, int, int, float]]]:
+        """Per component, (oy, ox, h, w, step) of each band in the packed
+        plane: what K-l and K-m quantize and dequantize."""
+        return [[(*_band_origin_in_packed(g, res.r, band.orient), band.rect.height,
+                  band.rect.width, band.step) for res in g.resolutions for band in res.bands]
+                for g in self.geoms]
 
     def gather_plan(self) -> _GatherPlan:
         refs: list[_CblkRef] = []
@@ -252,8 +275,7 @@ class TileProcessor:
         parsed and dropped, and reading stops after the last wanted one)."""
         clock = clock or StageClock(self.device, None)
         siz, tcp = self.siz, self.tcp
-        for c in range(siz.num_comps):
-            apply_band_quant(self.geoms[c], tcp.tccps[c])
+        self._apply_band_quant()
 
         # ---- T2: parse the packets (the object path of the reference)
         prc_ctx_map: dict[tuple[int, int, int, int], PrecinctCtx] = {}
@@ -275,9 +297,11 @@ class TileProcessor:
             if pos >= len(body):
                 break  # truncated stream: the remaining packets are empty
             res = self.geoms[pk.comp].resolutions[pk.res]
-            pos = decode_packet(body, pos, [prc_ctx_map[(pk.comp, pk.res, bi, pk.prec)]
-                                            for bi in range(len(res.bands))], pk.layer,
-                                drop=not wanted(pk))
+            pos, whole = decode_packet(body, pos, [prc_ctx_map[(pk.comp, pk.res, bi, pk.prec)]
+                                                   for bi in range(len(res.bands))], pk.layer,
+                                       drop=not wanted(pk))
+            if not whole:
+                break  # corrupt or truncated: keep the intact prefix
 
         # ---- the codeblocks that carry data; the others decode to zeros
         use_ht = bool(tcp.tccps[0].cblk_style & CBLK_HT)
@@ -342,6 +366,7 @@ class TileProcessor:
         out_planes = inverse_transform(
             planes, [g.rect for g in self.geoms],
             [t.num_resolutions - 1 for t in tcp.tccps], [c.prec for c in comps],
-            [c.signed for c in comps], rct=tcp.mct == 1 and siz.num_comps >= 3)
+            [c.signed for c in comps], self._mct(), self.irreversible,
+            self.band_tables() if self.irreversible else None)
         clock.mark("inverse")
         return out_planes

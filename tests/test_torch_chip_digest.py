@@ -1,25 +1,34 @@
-"""chip_smoke.py's pinned codestream digests come from grok_tpu itself.
+"""chip_smoke.py's pinned digests come from grok_tpu itself.
 
-chip_smoke.py holds every stream the card writes to ``REF_SHA256``: these
-tests make ``grok_tpu.compress`` write the same two images on the CPU, as
-Part-1 and as HTJ2K streams, and check the constants, so a wrong constant
-cannot pass on the card."""
+chip_smoke.py holds every stream the card writes to ``REF_SHA256``, every
+9/7 decode to ``REF_MD5`` and every corpus decode to ``CORPUS_REF_MD5``:
+these tests make ``grok_tpu.compress`` write the same images on the CPU (as
+Part-1, HTJ2K and 9/7 streams) and ``grok_tpu.decompress`` decode them and
+the corpus, and check the constants, so a wrong constant cannot pass on
+the card."""
 
+import functools
 import hashlib
+import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 import grok_tpu
+from tests.conftest import golden_md5
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
+# the image is made once for the three encodes of each size
+natural_image = functools.lru_cache(maxsize=2)(chip_smoke.natural_image)
+
 
 @pytest.mark.parametrize("h,w", [(256, 256), (chip_smoke.H, chip_smoke.W)])
 def test_reference_stream_has_the_pinned_digest(h, w):
-    arr = chip_smoke.natural_image(h, w, chip_smoke.NC)
+    arr = natural_image(h, w, chip_smoke.NC)
     out = grok_tpu.compress(grok_tpu.Image.from_array(arr),
                             grok_tpu.CompressParams(num_resolutions=6))
     nbytes, digest = chip_smoke.REF_SHA256[f"{h}x{w}x{chip_smoke.NC}"]
@@ -29,7 +38,7 @@ def test_reference_stream_has_the_pinned_digest(h, w):
 
 @pytest.mark.parametrize("h,w", [(256, 256), (chip_smoke.H, chip_smoke.W)])
 def test_reference_ht_stream_has_the_pinned_digest(h, w):
-    arr = chip_smoke.natural_image(h, w, chip_smoke.NC)
+    arr = natural_image(h, w, chip_smoke.NC)
     out = grok_tpu.compress(grok_tpu.Image.from_array(arr),
                             grok_tpu.CompressParams(num_resolutions=6, ht=True))
     nbytes, digest = chip_smoke.REF_SHA256[f"ht {h}x{w}x{chip_smoke.NC}"]
@@ -42,3 +51,32 @@ def test_chip_smoke_imports_only_numpy_at_module_level():
     top = [ln for ln in src.splitlines() if ln.startswith(("import ", "from "))]
     assert all(ln.split()[1] in ("__future__", "hashlib", "json", "subprocess", "sys", "time",
                                  "numpy") for ln in top), top
+
+
+@pytest.mark.parametrize("h,w", [(256, 256), (chip_smoke.H, chip_smoke.W)])
+def test_reference_97_stream_and_decode_have_the_pinned_digests(h, w):
+    arr = natural_image(h, w, chip_smoke.NC)
+    out = grok_tpu.compress(grok_tpu.Image.from_array(arr),
+                            grok_tpu.CompressParams(**chip_smoke.P97))
+    key = f"97 {h}x{w}x{chip_smoke.NC}"
+    assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
+    back = grok_tpu.decompress(out)
+    assert golden_md5([c.data for c in back.components]) == chip_smoke.REF_MD5[key]
+
+
+def test_corpus_digests_are_the_reference_decodes():
+    """Every pinned corpus digest is grok_tpu's decode of that stream with
+    the manifest's decode parameters."""
+    corpus = Path(__file__).resolve().parent / "corpus"
+    manifest = {e["name"]: e for e in json.loads((corpus / "manifest.json").read_text())}
+    assert set(chip_smoke.CORPUS_REF_MD5) <= set(manifest)
+    for name, md5 in chip_smoke.CORPUS_REF_MD5.items():
+        img = grok_tpu.decompress((corpus / "streams" / name).read_bytes(),
+                                  grok_tpu.DecompressParams(**manifest[name].get("decode", {})))
+        assert golden_md5([c.data for c in img.components]) == md5, name
+
+
+def test_chip_smoke_digest_recipe_is_the_corpus_recipe():
+    rng = np.random.default_rng(4)
+    planes = [rng.integers(-9, 300, size=s).astype(np.int32) for s in ((3, 5), (2, 7))]
+    assert chip_smoke.golden_md5(planes) == golden_md5(planes)

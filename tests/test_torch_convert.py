@@ -11,8 +11,10 @@ import torch
 import grok_tpu as gk
 import grok_tpu_torch as gt
 from grok_tpu.codestream.quantizer import band_norm as ref_band_norm
+from grok_tpu.ops import dwt, mct
 from grok_tpu.t1 import ebcot_np, ht, mq_np
 from grok_tpu_torch import convert
+from grok_tpu_torch.ops import transform as tr
 from grok_tpu_torch.t1 import ht as port_ht
 from grok_tpu_torch.t1.ebcot_cuda import device_tables
 from grok_tpu_torch.t1.ht_cuda import ht_tables
@@ -22,9 +24,12 @@ def _reference_tables() -> dict:
     return {
         "_ZC_LUT": ebcot_np._ZC_LUT, "_SC_CTX": ebcot_np._SC_CTX, "_SC_XOR": ebcot_np._SC_XOR,
         "QE": mq_np.QE, "NMPS": mq_np.NMPS, "NLPS": mq_np.NLPS, "SWITCH": mq_np.SWITCH,
-        "band_norms": np.array([[ref_band_norm(False, o, lv)
-                                 for lv in range(1, convert.NORM_LEVELS + 1)]
-                                for o in range(4)]),
+        **{k: np.array([[ref_band_norm(irrev, o, lv)
+                         for lv in range(1, convert.NORM_LEVELS + 1)] for o in range(4)])
+           for k, irrev in (("band_norms", False), ("band_norms97", True))},
+        "LIFT97": np.float32([dwt.ALPHA, dwt.BETA, dwt.GAMMA, dwt.DELTA, dwt.K, 1.0 / dwt.K]),
+        "ICT_FWD": mct._ICT_FWD.astype(np.float32),
+        "ICT_INV": mct._ICT_INV.astype(np.float32),
         **{k: getattr(ht, k) for k in convert.HT_TABLES},
     }
 
@@ -32,11 +37,26 @@ def _reference_tables() -> dict:
 def test_reference_tables_equal_builtin_copies():
     ref = convert.tables_from_numpy(_reference_tables(), device="cpu")
     own = convert.builtin_tables(device="cpu")
-    assert set(ref) == set(own) == {"ctx", "mq", "band_norms", "ht"}
+    assert set(ref) == set(own) == {"ctx", "mq", "band_norms", "band_norms97", "lift97",
+                                    "ict_fwd", "ict_inv", "ht"}
     assert torch.equal(ref["ctx"], own["ctx"]) and ref["ctx"].dtype == torch.int32
     assert torch.equal(ref["mq"], own["mq"]) and tuple(ref["mq"].shape) == (4, 47)
-    # the norms come from the same float64 recurrence: equal to the last bit
+    # the norms come from the same float64 recurrences: equal to the last bit
     assert torch.equal(ref["band_norms"], own["band_norms"])
+    assert torch.equal(ref["band_norms97"], own["band_norms97"])
+
+
+def test_reference_97_tables_equal_builtin_copies():
+    """The 9/7 lifting constants and the ICT matrices, rounded to float32 as
+    grok_tpu's host path uses them, equal the port's, and are what its
+    plain versions compute with."""
+    ref = convert.tables_from_numpy(_reference_tables(), device="cpu")
+    own = convert.builtin_tables(device="cpu")
+    for k in ("lift97", "ict_fwd", "ict_inv"):
+        assert own[k].dtype == torch.float32 and torch.equal(ref[k], own[k]), k
+    assert own["lift97"].tolist() == list(tr.LIFT97)
+    assert own["ict_fwd"].tolist() == [list(r) for r in tr.ICT_FWD]
+    assert own["ict_inv"].tolist() == [list(r) for r in tr.ICT_INV]
     # and they are what the kernels are given
     dev = device_tables(torch.device("cpu"))
     assert torch.equal(dev["ctx"], own["ctx"]) and torch.equal(dev["mq"], own["mq"])
@@ -66,10 +86,12 @@ def test_tables_of_the_wrong_shape_raise():
     d["QE"] = d["QE"][:46]
     with pytest.raises(ValueError):
         convert.tables_from_numpy(d)
-    d = _reference_tables()
-    d["band_norms"] = d["band_norms"][:, :5]
-    with pytest.raises(ValueError):
-        convert.tables_from_numpy(d)
+    for key, cut in (("band_norms", np.s_[:, :5]), ("band_norms97", np.s_[:2]),
+                     ("LIFT97", np.s_[:5]), ("ICT_INV", np.s_[:2])):
+        d = _reference_tables()
+        d[key] = d[key][cut]
+        with pytest.raises(ValueError):
+            convert.tables_from_numpy(d)
 
 
 @pytest.mark.parametrize("kw", [

@@ -4,7 +4,10 @@ present; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-All nine kernels are integer-only, so every comparison is exact."""
+Every comparison is exact: the nine kernels of the lossless paths are
+integer-only, and the six of the 9/7 path (K-j ... K-o) round every float
+product and sum on their own, as their plain versions do, so they are
+compared on their float32 bits."""
 
 import numpy as np
 import pytest
@@ -284,26 +287,32 @@ def test_ht_decode_kernel_equals_plain_on_garbage(cuda, seed):
 
 
 def test_ht_decode_kernel_flags_wide_fields(cuda):
-    """MagSgn fields over 30 bits: the kernel flags the same codeblocks as
-    the plain version, with zeros, and decode_cleanup_batch refuses them."""
+    """MagSgn fields of 31 and 32 bits, and random bytes: the kernel writes
+    what the plain version writes (grok_tpu's default decoder's values,
+    wrapped to int32, kept where a corrupt segment stops the decode) and
+    flags the same codeblocks as stopped."""
     c = np.zeros((3, 32, 32), dtype=np.int64)
     c[0, :4, :4] = (1 << 29) + 12345
     c[1, 2, 2] = -(1 << 30)
+    c[1, 5, 5] = (1 << 31) + 5  # alone in its quad: a 32-bit field
     c[2] = 77
     segs = [port_ht.encode_cleanup(b, 32, 32) for b in c]
-    data = torch.zeros((3, max(map(len, segs))), dtype=torch.uint8)
+    rng = np.random.default_rng(109)
+    segs += [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
+             for n in rng.integers(2, 400, size=13)]
+    n = len(segs)
+    data = torch.zeros((n, max(map(len, segs))), dtype=torch.uint8)
     for i, s in enumerate(segs):
         data[i, :len(s)] = torch.frombuffer(bytearray(s), dtype=torch.uint8)
     lens = torch.tensor([len(s) for s in segs], dtype=torch.int32)
-    hw = torch.full((3,), 32, dtype=torch.int32)
+    hw = torch.full((n,), 32, dtype=torch.int32)
     ref = hc.ht_cleanup_dec(data, lens, hw, hw, hc.ht_tables(torch.device("cpu")), 32, 32)
     got = hc.ht_cleanup_dec(data.to(cuda), lens.to(cuda), hw.to(cuda), hw.to(cuda),
                             hc.ht_tables(cuda), 32, 32)
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
-    assert bool(ref[1].any()) and not bool(ref[1][2])
-    with pytest.raises(gt.UnsupportedFeatureError, match="MagSgn"):
-        hc.decode_cleanup_batch(data.to(cuda), lens.to(cuda), hw.to(cuda), hw.to(cuda), 32, 32)
+    assert not bool(ref[1][:3].any()) and bool(ref[1][3:].any())
+    assert int(ref[0][1, 5, 5]) == -2147483643
 
 
 @pytest.mark.parametrize("h,w,py,px", [(1, 1, 0, 0), (1, 9, 1, 0), (2, 2, 1, 1),
@@ -460,3 +469,132 @@ def test_part1_layers_on_card_equal_plain_path(cuda):
             assert all(np.array_equal(c.data, arr[:, :, k]) for k, c in enumerate(card.components))
         for name in ("ebcot_decode", "dwt53_inv_level", "rct_inv_dc_clip"):
             assert counts[name] > 0, counts
+
+
+
+# ================================================================ 9/7 + ICT
+def _same_bits(a, b):
+    a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (a, b))
+    return torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("nc", [1, 3, 4])
+def test_dc_ict_kernel_equals_plain(cuda, nc):
+    rng = np.random.default_rng(nc)
+    planes = [torch.from_numpy(rng.integers(0, 4096, size=(67, 131)).astype(np.int32))
+              for _ in range(nc)]
+    dcs = [2048] * nc
+    before = _launches("dc_ict_fwd")
+    got = tr.dc_ict_fwd([p.to(cuda) for p in planes], dcs, nc >= 3)
+    torch.cuda.synchronize()
+    assert _launches("dc_ict_fwd") > before
+    for g, r in zip(got, tr.dc_ict_fwd_plain(planes, dcs, nc >= 3)):
+        assert _same_bits(g, r)
+
+
+@pytest.mark.parametrize("h,w,py,px", [(1, 1, 0, 0), (1, 9, 1, 0), (9, 1, 0, 1), (2, 2, 1, 1),
+                                       (3, 3, 0, 1), (37, 53, 0, 1), (64, 33, 1, 1),
+                                       (129, 256, 0, 0), (2160, 3840, 0, 0)])
+def test_dwt97_levels_kernel_equal_plain(cuda, h, w, py, px):
+    """K-k then K-n, one level each, at odd and even origins, lines of one
+    to three samples and a whole 4K plane."""
+    rng = np.random.default_rng(h + w)
+    plane = torch.from_numpy((rng.standard_normal((h + 3, w + 5)) * 400).astype(np.float32))
+    ref = plane.clone()
+    tr.dwt97_fwd_level_plain(ref, h, w, py, px)
+    got = plane.to(cuda)
+    before = _launches("dwt97_fwd_level")
+    tr.dwt97_fwd_level(got, h, w, py, px)
+    torch.cuda.synchronize()
+    assert _launches("dwt97_fwd_level") == before + 1
+    assert _same_bits(got, ref)
+    tr.dwt97_inv_level_plain(ref, h, w, py, px)
+    tr.dwt97_inv_level(got, h, w, py, px)
+    torch.cuda.synchronize()
+    assert _same_bits(got, ref)
+
+
+def _fma_fwd97_row(x: np.ndarray) -> np.ndarray:
+    """One forward 9/7 row (parity 0) with every x + c * (l + r) fused, as
+    a contracting compiler emits it: c * sum is not rounded before the add
+    (float64 holds the float32 product exactly)."""
+    from grok_tpu_torch.ops.transform import ALPHA, BETA, DELTA, GAMMA, INV_K97, K97
+    s, d = x[0::2].astype(np.float32), x[1::2].astype(np.float32)
+    sn, dn = len(s), len(d)
+    f32 = np.float32
+
+    def fma(c, t, acc):
+        return f32(np.float64(f32(c)) * np.float64(t) + np.float64(acc))
+    for c, tgt in ((ALPHA, "d"), (BETA, "s"), (GAMMA, "d"), (DELTA, "s")):
+        if tgt == "d":
+            d = np.array([fma(c, f32(s[j] + s[min(j + 1, sn - 1)]), d[j]) for j in range(dn)])
+        else:
+            s = np.array([fma(c, f32(d[max(i - 1, 0)] + d[min(i, dn - 1)]), s[i])
+                          for i in range(sn)])
+    return np.concatenate([s * f32(INV_K97), d * f32(K97)]).astype(np.float32)
+
+
+def test_dwt97_kernel_rounds_each_product_and_sum(cuda):
+    """A row whose fused multiply-add result differs from the two-rounding
+    one: K-k (built with -fmad=false) must give the two-rounding one."""
+    for seed in range(100):
+        row = (np.random.default_rng(seed).standard_normal((1, 64)) * 1000).astype(np.float32)
+        ref = torch.from_numpy(row.copy())
+        tr.dwt97_fwd_level_plain(ref, 1, 64, 0, 0)
+        if not np.array_equal(_fma_fwd97_row(row[0]).view(np.int32), ref[0].numpy().view(np.int32)):
+            break
+    else:
+        pytest.fail("no row tells a fused multiply-add from two roundings")
+    got = torch.from_numpy(row).to(cuda)
+    tr.dwt97_fwd_level(got, 1, 64, 0, 0)
+    torch.cuda.synchronize()
+    assert _same_bits(got, ref)
+
+
+@pytest.mark.parametrize("h,w", [(19, 22), (2160, 3840)])
+def test_quant_kernels_equal_plain(cuda, h, w):
+    rng = np.random.default_rng(h)
+    plane = torch.from_numpy((rng.standard_normal((h, w)) * 90).astype(np.float32))
+    bands = [(0, 0, h // 2, w // 2, 0.37), (0, w // 2, h // 2, w - w // 2, 1.9),
+             (h // 2, 0, h - h // 2, w // 3, 0.011), (h // 2, w // 3, h - h // 2, w - w // 3, 7.3)]
+    q = tr.quant_deadzone(plane.to(cuda), bands)
+    q_ref = tr.quant_deadzone_plain(plane, bands)
+    torch.cuda.synchronize()
+    assert torch.equal(q.cpu(), q_ref)
+    d = tr.dequant_midbin(q, bands)
+    torch.cuda.synchronize()
+    assert _same_bits(d, tr.dequant_midbin_plain(q_ref, bands))
+
+
+@pytest.mark.parametrize("nc", [1, 3, 4])
+def test_ict_inv_kernel_equals_plain(cuda, nc):
+    rng = np.random.default_rng(nc + 7)
+    planes = [torch.from_numpy((rng.standard_normal((45, 77)) * 300).astype(np.float32))
+              for _ in range(nc)]
+    planes[0][0, :3] = torch.tensor([float("nan"), float("inf"), float("-inf")])
+    dcs, ranges = [128] * nc, [(0, 255)] * nc
+    got = tr.ict_inv_dc_round_clip([p.to(cuda) for p in planes], dcs, ranges, nc >= 3)
+    torch.cuda.synchronize()
+    for g, r in zip(got, tr.ict_inv_dc_round_clip_plain(planes, dcs, ranges, nc >= 3)):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("ht", [False, True])
+def test_97_path_on_card_equals_plain_path(cuda, ht):
+    """compress and decompress with irreversible=True on the card: the
+    plain path's bytes and samples, and every 9/7 kernel launched."""
+    rng = np.random.default_rng(5)
+    arr = np.clip(rng.normal(128, 40, (40, 36, 3)), 0, 255).astype(np.int32)
+    params = dict(num_resolutions=4, irreversible=True, ht=ht, cblk_width=16, cblk_height=16)
+    gt.reset_launch_counts()
+    on_card = gt.compress(gt.Image.from_array(arr), gt.CompressParams(**params))
+    plain = gt.compress(gt.Image.from_array(arr), gt.CompressParams(**params), device="cpu")
+    assert on_card == plain
+    a = gt.decompress(on_card)
+    b = gt.decompress(on_card, device="cpu")
+    for x, y in zip(a.components, b.components):
+        np.testing.assert_array_equal(x.data, y.data)
+    counts = gt.launch_counts()
+    assert all(counts[k] > 0 for k in ("dc_ict_fwd", "dwt97_fwd_level", "quant_deadzone",
+                                       "dequant_midbin", "dwt97_inv_level",
+                                       "ict_inv_dc_round_clip"))

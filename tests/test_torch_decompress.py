@@ -150,8 +150,13 @@ def test_outside_the_slice_raises():
     np.testing.assert_array_equal(back.components[0].data, img)
     lossy = gk.compress(gk.Image.from_array(img),
                         gk.CompressParams(num_resolutions=2, irreversible=True))
+    np.testing.assert_array_equal(  # inside the slices since the 9/7 slice
+        gt.decompress(lossy, device="cpu").components[0].data,
+        gk.decompress(lossy).components[0].data)
     with pytest.raises(gt.UnsupportedFeatureError):
-        gt.decompress(lossy, device="cpu")
+        gt.decompress(gk.compress(gk.Image.from_array(img),
+                                  gk.CompressParams(num_resolutions=2, irreversible=True,
+                                                    use_eph=True)), device="cpu")
     with pytest.raises(gt.UnsupportedFeatureError):
         gt.compress(gt.Image.from_array(img, prec=8),
                     gt.CompressParams(ht=True, ht_refine=True), device="cpu")
@@ -159,7 +164,8 @@ def test_outside_the_slice_raises():
     for kw in (dict(reduce=1), dict(window=(0, 0, 8, 8)), dict(tile_index=0)):
         with pytest.raises(gt.UnsupportedFeatureError, match=next(iter(kw))):
             gt.decompress(ht, gt.DecompressParams(**kw), device="cpu")
-    for kw in (dict(irreversible=True), dict(use_sop=True), dict(write_plt=True),
+    for kw in (dict(irreversible=True, roi_comp=0, roi_shift=2), dict(use_sop=True),
+               dict(write_plt=True),
                dict(progression_changes=[gk.core.params.ProgressionChange(
                    0, 0, 1, 2, 1, gk.ProgressionOrder.LRCP)])):
         other = gk.compress(gk.Image.from_array(img),
