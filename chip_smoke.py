@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive grok_tpu_torch on one CUDA card: the Part-1 and HTJ2K encode and
-decode, lossless (5/3 + RCT) and lossy (9/7 + ICT).
+decode, lossless (5/3 + RCT) and lossy (9/7 + ICT), with quality layers
+and PCRD rate control.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -17,7 +18,11 @@ line):
               every band type (plain versions on the CPU; K-e, K-f and K-i
               timed on the whole batch; K-i's sample once whole and once cut
               after a seeded pass, and the whole batch decoded back to K-c's
-              input); all compared exactly
+              input); K-e's block energy on the sample (plain on the CPU)
+              and the whole batch (plain on the card); K-p and K-q on the
+              sample (plain on the CPU) and on the whole 4K lossy97 batch
+              (K-p's plain on the card, K-q's on the CPU); all compared
+              exactly, the float64 outputs on their bits
   5. slice    256x256x3 compress on the card, byte-identical to the plain
               path (device="cpu") and to grok_tpu's stream (REF_SHA256);
      slice_p1dec  the Part-1 stream decoded on the card, equal to the plain
@@ -27,6 +32,11 @@ line):
      slice_97 the same with irreversible=True (9/7 + ICT): the card stream
               equal to the plain path's and grok_tpu's, its card decode
               equal to the plain path's and to grok_tpu's decode (REF_MD5)
+     slice_rc the RC_CASES (layers with rate or PSNR targets, 5/3 and 9/7,
+              Part-1 and HT, both PCRD searches) on the card: each stream
+              with grok_tpu's length and SHA-256, its card decodes with
+              max_layers 0 and 1 with grok_tpu's digests; K-p, K-e and K-q
+              must launch
   6. e2e      3840x2160x3 lossless53 (CompressParams(num_resolutions=6))
               compressed three times like three requests: per-stage ms,
               end-to-end ms, MP/s, bytes; each stream must have grok_tpu's
@@ -43,11 +53,18 @@ line):
               decoded three times: each stream with grok_tpu's length and
               SHA-256, each decode with the digest of grok_tpu's decode;
               K-j, K-k, K-l, K-c, K-d, K-i, K-m, K-n and K-o must launch
+     e2e_1bpp bench.py's lossy97_1bpp row (P1BPP: 9/7 + ICT, one layer at
+              a rate of 8:1, PCRD with exact packet simulations) at
+              3840x2160x3, three encodes (stage times with t1_dist, hull,
+              pcrd and the number of simulations) and three decodes: each
+              stream with grok_tpu's length and SHA-256, each decode with
+              its digest; the 9/7 kernels, K-p and K-q must launch
   9. truncated  a 40x40x3 stream with 24x24 tiles, Part-1 and HT, cut to
               10-99% of its length: the card's planes equal the plain path's
  10. corpus   every .j2k of tests/corpus/streams decoded on the card with
               the manifest's decode parameters: identical to grok_tpu's
               decode (CORPUS_REF_MD5), or refused by name; none may differ
+ 11. walls    the wall seconds of each phase above
 Then the kernel summary line, the nvidia-smi line and the result line.
 """
 
@@ -64,7 +81,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 33.5e12  # H100 SXM peak INT32 rate, NVIDIA H100 white paper
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
+FP64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores, NVIDIA data sheet
 W, H, NC = 3840, 2160, 3
+# codeblocks of each band orientation in the kernel check's seeded sample,
+# which the plain versions code on the CPU (about 1.7 s a codeblock for
+# K-c, K-d and K-i together)
+SAMPLE_PER_ORIENT = 10
 # (bytes, SHA-256) of grok_tpu.compress on natural_image at num_resolutions=6
 # (tests/test_torch_chip_digest.py holds the reference to these constants)
 # and, under the keys "ht ...", with ht=True
@@ -80,6 +102,15 @@ REF_SHA256 = {
     "97 256x256x3": (84562, "8440126c3d3c48c84b37bcfe86f3217c295caad4c82147886af8281b5adc55ca"),
     "97 2160x3840x3": (10616803,
                        "9e62acf19ebb02a2c45bd96aa6bc77bbdbac2ae0276585dd9314f9756a2c5e37"),
+    # under "<case> ...", with RC_CASES[case], and under "1bpp ...", with P1BPP
+    "rc_a 256x256x3": (24396, "a14bd4febc5cf491062445d96ec68a1e2181db628c468c286f2c7833160ec65f"),
+    "rc_b 256x256x3": (147107,
+                       "b515fa3433c7d3e262f3baf1a097208dad693bdaa603df381564c10fd916aa84"),
+    "rc_c 256x256x3": (56326, "8582c1ffa808ea082ecfc615b9d988e1da4b45f55a294fef895fb35fa945ad6a"),
+    "rc_d 256x256x3": (90972, "e18b879cf32467386e0c67282dd39c4b2fb5dc5ff27c9fc84c5568b15cebd989"),
+    "rc_e 256x256x3": (24396, "a20ec85d1186d468f4f5caccf99902fcb6906917060c6f97d4ca432fd48635d5"),
+    "1bpp 2160x3840x3": (3092523,
+                         "10640d5fcb4dacbff02b52b4f079f8dca75f3e2fa7fd96bedce9bc2e8f327581"),
 }
 PART1_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ebcot_symbols", "mq_pack")
 PART1_DEC_KERNELS = ("ebcot_decode", "dwt53_inv_level", "rct_inv_dc_clip")
@@ -88,11 +119,39 @@ HT_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ht_cleanup_enc", "ht_cleanup_dec
 K97_KERNELS = ("dc_ict_fwd", "dwt97_fwd_level", "quant_deadzone", "ebcot_symbols", "mq_pack",
                "ebcot_decode", "dequant_midbin", "dwt97_inv_level", "ict_inv_dc_round_clip")
 P97 = dict(num_resolutions=6, irreversible=True)
-# md5 of grok_tpu.decompress's planes (golden_md5) of the "97 ..." streams
-# above; tests/test_torch_chip_digest.py holds the reference to these
+# bench.py's lossy97_1bpp row: one layer at a compression ratio of 8
+P1BPP = dict(num_resolutions=6, irreversible=True, num_layers=1, layer_rates=[8])
+# slice_rc: layers with rate targets (exact simulations, or rc_algorithm=1's
+# header estimate) and PSNR targets, 9/7 and 5/3, Part-1 and HT
+RC_CASES = {
+    "rc_a": dict(num_resolutions=6, irreversible=True, num_layers=3, layer_rates=[32, 16, 8]),
+    "rc_b": dict(num_resolutions=6, num_layers=2, layer_rates=[16, 1]),
+    "rc_c": dict(num_resolutions=6, irreversible=True, num_layers=2, layer_psnrs=[30, 40]),
+    "rc_d": dict(num_resolutions=6, ht=True, irreversible=True, num_layers=2,
+                 layer_rates=[20, 1]),
+    "rc_e": dict(num_resolutions=6, irreversible=True, num_layers=3, layer_rates=[32, 16, 8],
+                 rc_algorithm=1),
+}
+RC_KERNELS = ("ebcot_pass_dist", "hull_slopes")
+K1BPP_KERNELS = K97_KERNELS + RC_KERNELS
+# md5 of grok_tpu.decompress's planes (golden_md5) of the "97 ...", "1bpp
+# ..." and "<case> ..." streams above, the last decoded with max_layers 0
+# and 1 ("... L0", "... L1"); tests/test_torch_chip_digest.py holds the
+# reference to these
 REF_MD5 = {
     "97 256x256x3": "7c51a8bd0b5abf07f51e726ab6ad9694",
     "97 2160x3840x3": "87ee403c75cc2803a3df68ad7f904790",
+    "1bpp 2160x3840x3": "c9fd3bdae61c7d6da25488973d8b6bc2",
+    "rc_a 256x256x3 L0": "fcbb2f16079d413e4813bee27305ed6d",
+    "rc_a 256x256x3 L1": "55e51e20ff25daefb80b3967ddeb2d1b",
+    "rc_b 256x256x3 L0": "e0eaa24105ab6f58a18e47eb83ab5d61",
+    "rc_b 256x256x3 L1": "5748d247acc7a7f3e525f3ca5f4a90ba",
+    "rc_c 256x256x3 L0": "521df51a990c57d6256d8b8853010f07",
+    "rc_c 256x256x3 L1": "1283631872aee305ed365d182aa5e93d",
+    "rc_d 256x256x3 L0": "7c51a8bd0b5abf07f51e726ab6ad9694",
+    "rc_d 256x256x3 L1": "cf58f7859d31fe18fa92822c197f6616",
+    "rc_e 256x256x3 L0": "fcbb2f16079d413e4813bee27305ed6d",
+    "rc_e 256x256x3 L1": "394c441df18005c5489b4a3da42eae92",
 }
 # golden_md5 of grok_tpu.decompress's planes for every corpus stream the
 # port decodes, with the manifest's decode parameters (anchored by
@@ -306,9 +365,16 @@ def main() -> int:
     from grok_tpu_torch.t1 import ebcot_cuda as ec
     from grok_tpu_torch.t1 import ht_cuda as hc
     from grok_tpu_torch.t1.ebcot import lane_numbps
+    from grok_tpu_torch.t2 import rate_control as rc
     from grok_tpu_torch.tile.tile_processor import TileProcessor, _repair_pass_rates
 
     dev = _device(torch)
+    walls, t_prev = {}, [time.perf_counter()]
+
+    def lap(name):  # the wall seconds since the previous lap, under name
+        t = time.perf_counter()
+        walls[name] = t - t_prev[0]
+        t_prev[0] = t
 
     # ---- 1. device
     smi = subprocess.run(
@@ -319,6 +385,8 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    lap("device")
+
     # ---- 2. build
     build_s = kernels.build_all()
     regs = {}
@@ -328,6 +396,8 @@ def main() -> int:
             regs[k.source] = [ln.strip() for ln in log.read_text().splitlines()
                               if "registers" in ln]
     emit({"phase": "build", "seconds": round(build_s, 3), "ptxas": regs})
+
+    lap("build")
 
     # ---- 3. kernels
     emit({"phase": "kernels", "path_kernels": [
@@ -404,7 +474,8 @@ def main() -> int:
     rng = np.random.default_rng(7)
     orients = plan.orients.cpu().numpy()
     pick = np.concatenate([rng.choice(np.flatnonzero(orients == o),
-                                      size=min(20, int((orients == o).sum())), replace=False)
+                                      size=min(SAMPLE_PER_ORIENT, int((orients == o).sum())),
+                                      replace=False)
                            for o in range(4)])
     idx = torch.from_numpy(np.sort(pick)).to(dev)
     s_batch = batch[idx].contiguous()
@@ -452,6 +523,27 @@ def main() -> int:
         plain_shape=sample, sample_ms=sample_ms_d, valid_records=int(valid.sum()),
         max_valid_records_one_codeblock=int(valid.max()),
         sample_max_valid_records=int(valid[idx].max()))
+
+    # K-p and K-q on the sample: the kernels on the card, the plain versions
+    # on the CPU, from the sample's records and (repaired) pass rates
+    s_nb = s_lanes[0].contiguous()
+    k_dist = ec.ebcot_pass_dist(s_sym, s_batch, s_nb, s_pmax)
+    plain_ms_p, p_dist = cpu_ms(lambda: ec.pass_dist_from_records(
+        s_sym.cpu(), s_batch.cpu(), s_nb.cpu(), s_pmax))
+    s_rates = k_out[2].cpu().numpy().astype(np.int64)
+    s_npass = ((s_nb.to(torch.int64) * 3 - 2).clamp(min=0)).cpu().numpy()
+    _repair_pass_rates(s_rates, s_npass)
+    s_w2 = tp._band_weights(plan.refs)[np.sort(pick)]
+    s_dists = k_dist.cpu().numpy() * s_w2[:, None]
+    hull_in = [torch.from_numpy(a) for a in (s_rates, s_dists, s_npass.astype(np.int32))]
+    k_slopes = rc.hull_slopes(*(t.to(dev) for t in hull_in))
+    plain_ms_q, p_slopes = cpu_ms(lambda: rc.hull_slopes(*hull_in))
+    sample_checks_pq = dict(
+        ebcot_pass_dist=dict(equal=bool(torch.equal(k_dist.cpu(), p_dist)),
+                             plain_cpu_ms=plain_ms_p, passes=int(s_npass.sum())),
+        hull_slopes=dict(equal=bool(torch.equal(k_slopes.cpu(), p_slopes)),
+                         plain_cpu_ms=plain_ms_q))
+    del k_dist, k_slopes
 
     # K-i: the whole 4K batch's segments back to the coefficients K-c read,
     # timed on the card; the sample against the plain version on the CPU,
@@ -516,6 +608,14 @@ def main() -> int:
     mmax = max((2 * int(batch.abs().max()) - 1).bit_length(), 1)
     hbuf, hlen = hc.ht_cleanup_enc(batch, h32, w32, htab, mmax)
     ms_e = cuda_ms(torch, lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax), reps=3)
+    # with the block energy of rate control: the same segments, and the
+    # energies of the plain version (on the card)
+    e_buf, e_len, energy = hc.ht_cleanup_enc(batch, h32, w32, htab, mmax, want_energy=True)
+    ms_e_energy = cuda_ms(torch, lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax,
+                                                           want_energy=True), reps=3)
+    energy_ok = (torch.equal(e_buf, hbuf) and torch.equal(e_len, hlen)
+                 and torch.equal(energy, hc.block_energy_plain(batch, h32, w32)))
+    del e_buf, e_len, energy
     seg_bytes = int(hlen.sum())
     hdata = hbuf[:, :int(hlen.max())].contiguous()
     hlen32 = hlen.to(torch.int32)
@@ -531,6 +631,11 @@ def main() -> int:
         s_batch.cpu(), s_h.cpu(), s_w.cpu(), k_enc[0].shape[1]))
     err_e = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
                 for a, b in zip(k_enc, p_enc))
+    k_energy = hc.ht_cleanup_enc(s_batch, s_h, s_w, htab, mmax, want_energy=True)[2]
+    energy_ok = energy_ok and torch.equal(
+        k_energy.cpu(), hc.block_energy_plain(s_batch.cpu(), s_h.cpu(), s_w.cpu()))
+    if not energy_ok:
+        err_e = max(err_e, 1)  # an energy off in any bit counts as an error
     s_data = k_enc[0][:, :max(int(k_enc[1].max()), 2)].contiguous()
     s_len32 = k_enc[1].to(torch.int32)
     k_dec = hc.ht_cleanup_dec(s_data, s_len32, s_h, s_w, htab, bh, bw)
@@ -543,7 +648,8 @@ def main() -> int:
         max_abs_err=err_e, ms=ms_e, plain_ms=plain_ms_e, library_ms=None,
         bytes=samples * 4 + seg_bytes + n * 8, ops=samples,
         shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B, "
-              f"MagSgn fields <= {mmax} bits", plain_shape=sample)
+              f"MagSgn fields <= {mmax} bits", plain_shape=sample,
+        ms_with_energy=ms_e_energy, energy_equal=energy_ok)
     stats["ht_cleanup_dec"] = dict(
         max_abs_err=err_f, ms=ms_f, plain_ms=plain_ms_f, library_ms=None,
         bytes=seg_bytes + samples * 4 + n, ops=samples,
@@ -631,6 +737,76 @@ def main() -> int:
                                          for p, b in zip(kern, bands)]),
         bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
         shape=f"3 x {H}x{W} float32 -> int32, {len(bands[0])} bands a component")
+
+    # K-p and K-q on the whole 4K lossy97 batch (the codeblocks of these
+    # quantized planes): K-p against its plain version on the card, K-q
+    # against its plain loop on the CPU, from K-d's repaired pass rates and
+    # the weighted distortions, as the tile processor hands them over
+    plan97 = tp97.gather_plan()
+    b97 = tp97.gather(q_k, plan97)
+    n97, bh97, bw97 = b97.shape
+    nb97 = lane_numbps(b97.abs(), plan97.heights, plan97.widths)
+    pmax97 = int(nb97.max())
+    lanes97 = torch.stack([nb97, plan97.heights, plan97.widths, plan97.orients,
+                           plan97.styles]).to(torch.int32).contiguous()
+    sym97 = ec.ebcot_symbols(b97, lanes97, tabs["ctx"], -(-pmax97 // 4) * 4)
+    nb97_32 = lanes97[0].contiguous()
+    dist97 = ec.ebcot_pass_dist(sym97, b97, nb97_32, pmax97)
+    ms_p = cuda_ms(torch, lambda: ec.ebcot_pass_dist(sym97, b97, nb97_32, pmax97), reps=3)
+    p_dist97 = ec.pass_dist_from_records(sym97, b97, nb97_32, pmax97)
+    plain_ms_p = cuda_ms(torch, lambda: ec.pass_dist_from_records(sym97, b97, nb97_32, pmax97),
+                         reps=1)
+    err_p = 0.0 if torch.equal(dist97, p_dist97) else (
+        float((dist97 - p_dist97).abs().max()) or 1e-30)
+    if not sample_checks_pq["ebcot_pass_dist"]["equal"]:
+        err_p = max(err_p, 1e-30)
+    ns97 = -(-bh97 // 4)
+    s_spp97, s_mrp97, _, _ = ec.slot_counts(ns97, bw97)
+    npos97 = ns97 * bw97 * 4
+    nbh97 = nb97.cpu().numpy()
+    # the records K-p must read: the sign slots of SPP and CUP, every MRP slot
+    read_p = int(sum(max(int(b) - 1, 0) * (s_spp97 // 2 + s_mrp97) + int(b) * npos97
+                     for b in nbh97))
+    in_blk97 = int((plan97.heights * plan97.widths).sum())
+    valid_p = 0  # the decreases K-p forms and adds
+    for i in range(0, n97, 512):
+        ch = sym97[i:i + 512]
+        valid_p += int((ch[:, :, 0, 1:s_spp97:2] >= 0x80).sum()
+                       + (ch[:, :, 1, :s_mrp97] >= 0x80).sum()
+                       + (ch[:, :, 2, :ns97 * bw97 * 11].reshape(ch.shape[0], ch.shape[1], -1,
+                                                                 11)[..., 4::2] >= 0x80).sum())
+    p_passes = dist97.shape[1]
+    stats["ebcot_pass_dist"] = dict(
+        max_abs_err=err_p, ms=ms_p, plain_ms=plain_ms_p, library_ms=None,
+        bytes=read_p + in_blk97 * 4 + n97 * 4 + n97 * p_passes * 8, ops=5 * valid_p,
+        op_rate=FP64_OPS_PER_S,
+        shape=f"{n97} codeblocks {bh97}x{bw97} (4K lossy97), {p_passes} passes, "
+              f"{read_p} B of records read, {valid_p} decreases",
+        plain_shape="the same batch, plain on the card",
+        sample_check=sample_checks_pq["ebcot_pass_dist"])
+    r97 = ec.mq_pack(sym97, nb97_32, lanes97[4].contiguous(), tabs["mq"], bh97, bw97,
+                     pmax97)[2].cpu().numpy().astype(np.int64)
+    np97 = np.maximum(nbh97.astype(np.int64) * 3 - 2, 0)
+    _repair_pass_rates(r97, np97)
+    d97 = dist97.cpu().numpy() * tp97._band_weights(plan97.refs)[:, None]
+    del sym97, p_dist97, dist97
+    hull97 = [torch.from_numpy(a) for a in (r97, d97, np97.astype(np.int32))]
+    hull97_dev = [t.to(dev) for t in hull97]
+    k_sl97 = rc.hull_slopes(*hull97_dev)
+    ms_q = cuda_ms(torch, lambda: rc.hull_slopes(*hull97_dev), reps=5)
+    plain_ms_q, p_sl97 = cpu_ms(lambda: rc.hull_slopes(*hull97))
+    err_q = 0.0 if torch.equal(k_sl97.cpu(), p_sl97) else (
+        float((k_sl97.cpu() - p_sl97).abs().max()) or 1e-30)
+    if not sample_checks_pq["hull_slopes"]["equal"]:
+        err_q = max(err_q, 1e-30)
+    stats["hull_slopes"] = dict(
+        max_abs_err=err_q, ms=ms_q, plain_ms=plain_ms_q, library_ms=None,
+        bytes=n97 * p_passes * 8 + int(np97.sum()) * 16 + n97 * 4, ops=10 * int(np97.sum()),
+        op_rate=FP64_OPS_PER_S,
+        shape=f"{n97} codeblocks (4K lossy97), {p_passes} passes, {int(np97.sum())} coded",
+        plain_shape="the same batch, plain on cpu",
+        sample_check=sample_checks_pq["hull_slopes"])
+    del b97, hull97_dev, k_sl97
     d_k = [tr.dequant_midbin(q, b) for q, b in zip(q_k, bands)]
     d_p = [tr.dequant_midbin_plain(q, b) for q, b in zip(q_k, bands)]
     stats["dequant_midbin"] = dict(
@@ -671,6 +847,8 @@ def main() -> int:
         emit({"phase": "check", "kernel": name, "tolerance": 0, **s})
         if s["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from its plain version")
+
+    lap("kernel_check")
 
     # ---- 5. whole slice at 256x256x3: kernel path == plain path
     small = natural_image(256, 256, 3)
@@ -743,6 +921,31 @@ def main() -> int:
         raise AssertionError("256x256 9/7 card stream or decode differs from the plain path "
                              "or grok_tpu's")
 
+    # layers and PCRD at 256x256x3: grok_tpu's streams and decodes
+    gt.reset_launch_counts()
+    for name, kw in RC_CASES.items():
+        stage = {}
+        t0 = time.perf_counter()
+        out = gt.compress(gt.Image.from_array(small), gt.CompressParams(**kw), stage_ms=stage)
+        t1 = time.perf_counter()
+        sha, ref_ok = digest_ok(out, f"{name} 256x256x3")
+        md5s = [golden_md5([c.data for c in gt.decompress(
+            out, gt.DecompressParams(max_layers=k)).components]) for k in (0, 1)]
+        t2 = time.perf_counter()
+        dec_ok = md5s == [REF_MD5[f"{name} 256x256x3 L{k}"] for k in (0, 1)]
+        emit({"phase": "slice_rc", "case": name, "params": kw, "image": "256x256x3",
+              "bytes": len(out), "sha256": sha, "reference_digest": ref_ok,
+              "decode_md5_max_layers_0_1": md5s, "decode_reference_digests": dec_ok,
+              "gpu_enc_ms": (t1 - t0) * 1e3, "gpu_dec_ms": (t2 - t1) * 1e3, "stage_ms": stage})
+        if not (ref_ok and dec_ok):
+            raise AssertionError(f"slice_rc {name}: the stream or a decode is not grok_tpu's")
+    rc_counts = gt.launch_counts()
+    emit({"phase": "slice_rc_launches", "launches": rc_counts})
+    if any(rc_counts[k] <= 0 for k in RC_KERNELS + ("ht_cleanup_enc",)):
+        raise AssertionError(f"a kernel of the rate-control path never launched: {rc_counts}")
+
+    lap("slices")
+
     # ---- 6. full size, three requests
     gt.reset_launch_counts()
     runs = []
@@ -769,6 +972,8 @@ def main() -> int:
     if any(counts[k] <= 0 for k in PART1_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
 
+    lap("e2e")
+
     # ---- 6b. the Part-1 decode of those streams, three requests
     gt.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -791,6 +996,8 @@ def main() -> int:
         raise AssertionError(f"a kernel of the Part-1 decode never launched: {dec_counts}")
     counts["ebcot_decode"] = dec_counts["ebcot_decode"]
     del p1_streams
+
+    lap("e2e_dec")
 
     # ---- 7. HT at full size: three encodes, three decodes
     gt.reset_launch_counts()
@@ -830,6 +1037,8 @@ def main() -> int:
         raise AssertionError(f"a kernel of the HT path never launched: {ht_counts}")
     for k in HT_KERNELS[2:]:
         counts[k] = ht_counts[k]
+
+    lap("e2e_ht")
 
     # ---- 8. lossy 9/7 + ICT at full size, three encodes and three decodes
     gt.reset_launch_counts()
@@ -877,6 +1086,56 @@ def main() -> int:
             counts[k] = l_counts[k]
     del streams
 
+    lap("e2e_97")
+
+    # ---- 8b. bench.py's lossy97_1bpp at full size: 9/7 + ICT with PCRD to
+    # a rate of 8:1, three encodes and three decodes
+    gt.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    streams = []
+    for i in range(3):
+        stage = {}
+        img = gt.Image.from_array(arr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gt.compress(img, gt.CompressParams(**P1BPP), stage_ms=stage)
+        torch.cuda.synchronize()
+        e2e = (time.perf_counter() - t0) * 1e3
+        sha, ref_ok = digest_ok(out, f"1bpp {H}x{W}x{NC}")
+        emit({"phase": "e2e_1bpp", "op": "encode", "request": i, "e2e_ms": e2e,
+              "mp_per_s": W * H / 1e6 / (e2e / 1e3), "bytes": len(out),
+              "bits_per_pixel": 8 * len(out) / (W * H), "sha256": sha,
+              "reference_digest": ref_ok, "stage_ms": stage})
+        if not ref_ok:
+            raise AssertionError(f"1bpp request {i}: the stream is not grok_tpu's ({len(out)} B)")
+        streams.append(out)
+    for i, stream in enumerate(streams):
+        stage = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = gt.decompress(stream, stage_ms=stage)
+        torch.cuda.synchronize()
+        e2e = (time.perf_counter() - t0) * 1e3
+        md5 = golden_md5([c.data for c in back.components])
+        emit({"phase": "e2e_1bpp", "op": "decode", "request": i, "e2e_ms": e2e,
+              "mp_per_s": W * H / 1e6 / (e2e / 1e3), "decode_md5": md5,
+              "reference_digest": md5 == REF_MD5[f"1bpp {H}x{W}x{NC}"],
+              "max_abs_err_vs_input": max(int(np.abs(c.data - arr[:, :, k]).max())
+                                          for k, c in enumerate(back.components)),
+              "stage_ms": stage})
+        if md5 != REF_MD5[f"1bpp {H}x{W}x{NC}"]:
+            raise AssertionError(f"1bpp decode {i}: not grok_tpu's decode")
+    b_counts = gt.launch_counts()
+    emit({"phase": "e2e_1bpp_launches", "image": f"{W}x{H}x{NC} lossy97_1bpp", "requests": 3,
+          "launches": b_counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if any(b_counts[k] <= 0 for k in K1BPP_KERNELS):
+        raise AssertionError(f"a kernel of the 1bpp path never launched: {b_counts}")
+    for k in RC_KERNELS:
+        counts[k] = b_counts[k]
+    del streams
+
+    lap("e2e_1bpp")
+
     # ---- 9. truncated streams: the card's planes equal the plain path's
     cuts = cut_streams(gt)
     gt.reset_launch_counts()
@@ -890,6 +1149,8 @@ def main() -> int:
           "gpu_ms": (t1 - t0) * 1e3, "launches": gt.launch_counts()})
     if not all(same):
         raise AssertionError("a truncated stream decodes differently on the card")
+
+    lap("truncated")
 
     # ---- 10. the corpus: every stream identical to grok_tpu's decode or
     # refused by name
@@ -919,6 +1180,8 @@ def main() -> int:
         raise AssertionError(f"corpus: differ {tally['differ']}, unpinned {tally['unpinned']}, "
                              f"pinned but not decoded {missing}")
 
+    lap("corpus")
+    emit({"phase": "walls", "seconds": walls, "total": sum(walls.values())})
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",
          "replaces": k.replaces, "launches": counts[k.name],

@@ -1,17 +1,23 @@
 """grok_tpu_torch — the PyTorch / CUDA port of grok_tpu for NVIDIA Hopper.
 
-Three slices are ported. The Part-1 lossless encode: DC shift + RCT + 5/3
+Five slices are ported. The Part-1 lossless encode: DC shift + RCT + 5/3
 DWT, codeblock gather, EBCOT context modelling and MQ coding. Its decode:
 EBCOT/MQ decoding of every codeblock style, codeblock scatter, the inverse
 5/3 + RCT, with ``DecompressParams(max_layers=k)`` for a layer-limited
 decode. The HTJ2K lossless encode and decode (``ht=True``): the same
-transform and gather, the HT cleanup coder and decoder. Device work runs
-in hand-written CUDA kernels (``csrc/``); T2 and markers run on the host.
-The package imports torch and numpy only; grok_tpu is its reference in
-the tests, never a dependency.
+transform and gather, the HT cleanup coder and decoder. The 9/7 + ICT
+encode and decode (``irreversible=True``). Quality layers with PCRD rate
+control (``num_layers``, ``layer_rates``, ``layer_psnrs``): per-pass
+distortions and hull slopes on the device, the threshold search and its
+packet simulations on the host. Device work runs in hand-written CUDA
+kernels (``csrc/``); T2 and markers run on the host. The package imports
+torch and numpy only; grok_tpu is its reference in the tests, never a
+dependency.
 
     import grok_tpu_torch as gt
     stream = gt.compress(gt.Image.from_array(arr), gt.CompressParams(ht=True))
+    lossy = gt.compress(gt.Image.from_array(arr),
+                        gt.CompressParams(irreversible=True, layer_rates=[8]))
     image = gt.decompress(stream)
 
 ``compress`` and ``decompress`` run on the current CUDA device;

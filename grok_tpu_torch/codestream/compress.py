@@ -2,7 +2,9 @@
 grok_tpu/codestream/compress.py (build_siz, build_tcp, write_main_header,
 encode_tile_to_blob, compress) for the ported slices: Part-1 (MQ) and
 HTJ2K cleanup-only (``ht=True``), reversible 5/3 + RCT or irreversible
-9/7 + ICT (``irreversible=True``, quantization style 2 or 1), one layer.
+9/7 + ICT (``irreversible=True``, quantization style 2 or 1), any number
+of quality layers with rate (``layer_rates``) or quality
+(``layer_psnrs``) targets, allocated per tile by PCRD.
 
 Host-side orchestration: the main header, one TileProcessor per tile
 (each drives the device work of its tile), tiles one after another.
@@ -30,9 +32,6 @@ def check_supported(params: CompressParams) -> None:
         "ht_refine (HT refinement passes)": params.ht and params.ht_refine,
         "mct_matrix": params.mct_matrix is not None,
         "custom_mct": params.custom_mct is not None,
-        "num_layers>1": params.num_layers != 1,
-        "layer_rates": bool(params.layer_rates),
-        "layer_psnrs": bool(params.layer_psnrs),
         "roi": params.roi_comp >= 0 or params.roi_shift != 0,
         "precinct_sizes": params.precinct_sizes is not None,
         "progression_changes (POC)": bool(params.progression_changes),
@@ -150,9 +149,11 @@ def _extract_tile(image: Image, siz: Siz, tile_index: int) -> list[np.ndarray]:
 
 
 def encode_tile_to_blob(siz: Siz, tcp: Tcp, ti: int, comp_arrays: list[np.ndarray],
-                        device: torch.device, clock: StageClock | None = None) -> bytes:
-    """Encode one tile into its SOT..body blob (one tile-part)."""
-    tp = TileProcessor(siz, tcp, ti, device)
+                        device: torch.device, clock: StageClock | None = None,
+                        params: CompressParams | None = None) -> bytes:
+    """Encode one tile into its SOT..body blob (one tile-part); ``params``
+    carry the rate or quality targets."""
+    tp = TileProcessor(siz, tcp, ti, device, params)
     body = tp.compress(comp_arrays, clock)
     psot = 12 + 2 + len(body)
     return mk.write_sot(ti, psot, 0, 1) + mk._u16(mk.SOD) + body
@@ -174,7 +175,9 @@ def compress(image: Image, params: CompressParams | None = None, device=None,
              stage_ms: dict[str, float] | None = None) -> bytes:
     """Encode an Image to a raw .j2k codestream on ``device`` (default: the
     current CUDA device). With ``stage_ms`` (a dict) the device is
-    synchronised between stages and their milliseconds are added there."""
+    synchronised between stages and their milliseconds are added there,
+    with the count of rate control's packet simulations under
+    ``pcrd_simulations``."""
     params = params or CompressParams()
     params.validate()
     check_supported(params)
@@ -193,6 +196,7 @@ def compress(image: Image, params: CompressParams | None = None, device=None,
     out = write_main_header(siz, tcp, params)
     clock.mark("markers")
     for ti in range(siz.num_tiles):
-        out += encode_tile_to_blob(siz, tcp, ti, _extract_tile(image, siz, ti), dev, clock)
+        out += encode_tile_to_blob(siz, tcp, ti, _extract_tile(image, siz, ti), dev, clock,
+                                   params)
     out += mk._u16(mk.EOC)
     return bytes(out)

@@ -4,8 +4,9 @@ A codec has no trained weights; what must agree between grok_tpu and the
 port is its tables (EBCOT zero/sign-coding contexts and the MQ state
 machine, which the Part-1 encoder and decoder kernels both load; the 5/3
 and 9/7 band synthesis norms; the 9/7 lifting constants and the ICT
-matrices as float32; the HT coder's CxtVLC, MEL and u-code tables) and
-its parameters. These helpers
+matrices as float32; the float64 inverse ICT and linearised inverse RCT
+whose column norms weigh rate control's distortions; the HT coder's
+CxtVLC, MEL and u-code tables) and its parameters. These helpers
 take the reference's values as plain numpy arrays and dicts, so the port
 never imports the reference to use them.
 """
@@ -25,6 +26,7 @@ from .t1 import ht
 from .t1.ebcot import SC_CTX, SC_XOR, ZC_LUT, ctx_table
 from .t1.ht_cuda import pack_ht_tables
 from .t1.mq import NLPS, NMPS, QE, SWITCH, mq_table
+from .t2.rate_control import ICT_INV64, RCT_INV_LINEAR, mct_column_weights
 
 HT_TABLES = ("MEL_EXP", "ENC_TBL", "DEC_TBL", "_U_PRE", "_U_PRE_LEN", "_U_SUF", "_U_SUF_LEN")
 
@@ -38,10 +40,13 @@ def tables_from_numpy(d: dict, device=None) -> dict[str, torch.Tensor]:
     [4, 33], the 5/3 and 9/7 synthesis norm of each (orient, level 1..33)
     (codestream/quantizer.py), LIFT97 [6] (ops/dwt.py ALPHA, BETA, GAMMA,
     DELTA, K and 1/K), ICT_FWD and ICT_INV [3, 3] (ops/mct.py _ICT_FWD,
-    _ICT_INV), the last three as float32, and the HT tables of t1/ht.py
-    (HT_TABLES: MEL_EXP [13], ENC_TBL [2, 2048], DEC_TBL [2][8][128]
-    entries or None, the u-code tables [33]), which give "ht" in the HT
-    kernels' layout (t1/ht_cuda.pack_ht_tables)."""
+    _ICT_INV), the last three as float32, ICT_INV64 and RCT_INV_LINEAR
+    [3, 3] float64 (mct._ICT_INV and tile_processor._mct_weights' linearised
+    inverse RCT), which also give "mct_w97" and "mct_w53" [3], the MCT
+    weights of rate control (their column norms), and the HT tables of
+    t1/ht.py (HT_TABLES: MEL_EXP [13], ENC_TBL [2, 2048], DEC_TBL
+    [2][8][128] entries or None, the u-code tables [33]), which give "ht"
+    in the HT kernels' layout (t1/ht_cuda.pack_ht_tables)."""
     t = {k: torch.from_numpy(np.ascontiguousarray(d[k]).astype(np.int64))
          for k in ("_ZC_LUT", "_SC_CTX", "_SC_XOR", "QE", "NMPS", "NLPS", "SWITCH")}
     if t["_ZC_LUT"].shape != (4, 45) or any(t[k].shape != (47,)
@@ -55,11 +60,16 @@ def tables_from_numpy(d: dict, device=None) -> dict[str, torch.Tensor]:
     for key, dtype, shape in (("band_norms", np.float64, (4, NORM_LEVELS)),
                               ("band_norms97", np.float64, (4, NORM_LEVELS)),
                               ("LIFT97", np.float32, (6,)), ("ICT_FWD", np.float32, (3, 3)),
-                              ("ICT_INV", np.float32, (3, 3))):
+                              ("ICT_INV", np.float32, (3, 3)),
+                              ("ICT_INV64", np.float64, (3, 3)),
+                              ("RCT_INV_LINEAR", np.float64, (3, 3))):
         a = np.asarray(d[key], dtype=dtype)
         if a.shape != shape:
             raise ValueError(f"{key} must be {list(shape)}")
         out[key.lower()] = torch.from_numpy(a.copy()).to(device)
+    for key, m in (("mct_w97", "ICT_INV64"), ("mct_w53", "RCT_INV_LINEAR")):
+        w = mct_column_weights(np.asarray(d[m], dtype=np.float64))
+        out[key] = torch.tensor(w, dtype=torch.float64, device=device)
     return out
 
 
@@ -75,6 +85,7 @@ def builtin_tables(device=None) -> dict[str, torch.Tensor]:
         "LIFT97": np.array(transform.LIFT97, dtype=np.float32),
         "ICT_FWD": np.array(transform.ICT_FWD, dtype=np.float32),
         "ICT_INV": np.array(transform.ICT_INV, dtype=np.float32),
+        "ICT_INV64": ICT_INV64, "RCT_INV_LINEAR": RCT_INV_LINEAR,
         **{k: getattr(ht, k) for k in HT_TABLES},
     }, device)
 

@@ -86,8 +86,8 @@ class CompressParams:
 
     # --- layers / rate control ---
     num_layers: int = 1
-    layer_rates: list[float] | None = None
-    layer_psnrs: list[float] | None = None
+    layer_rates: list[float] | None = None  # compression ratios, e.g. [20, 10, 5]
+    layer_psnrs: list[float] | None = None  # fixed-quality targets (dB)
 
     # --- progression ---
     progression: ProgressionOrder = ProgressionOrder.LRCP
@@ -116,6 +116,8 @@ class CompressParams:
 
     # --- misc ---
     num_threads: int = 0
+    # PCRD threshold search: 0 = bisection with exact T2 simulations;
+    # 1 = the body-rate bisection with an estimate of the header bytes
     rc_algorithm: int = 0
 
     def resolved_mct(self, num_comps: int, equal_sampling: bool = True) -> bool:
@@ -138,6 +140,14 @@ class CompressParams:
             raise ParameterError("codeblock area must be <= 4096")
         if self.num_layers < 1 or self.num_layers > 65535:
             raise ParameterError("num_layers out of range")
+        if self.layer_rates is not None and len(self.layer_rates) != self.num_layers:
+            raise ParameterError("layer_rates length != num_layers")
+        if self.layer_psnrs is not None and len(self.layer_psnrs) != self.num_layers:
+            raise ParameterError("layer_psnrs length != num_layers")
+        if self.layer_rates and self.layer_psnrs:
+            # grok_tpu raises this when its rate control starts
+            # (tile/tile_processor.py:778-779); here before any work
+            raise ValueError("layer_rates and layer_psnrs are exclusive")
 
 
 @dataclass

@@ -2,8 +2,10 @@
 
 A ``StageClock`` built with an output dict synchronises the device at
 each mark and adds the milliseconds since the previous mark under the
-stage's name; built with ``None`` it does nothing, so the pipeline runs
-without extra synchronisation when nobody asks for stage times.
+stage's name, and adds events it is told to count (such as rate
+control's packet simulations) under theirs; built with ``None`` it does
+nothing, so the pipeline runs without extra synchronisation when nobody
+asks for stage times.
 """
 
 from __future__ import annotations
@@ -31,3 +33,8 @@ class StageClock:
         t = self._now()
         self.out[stage] = self.out.get(stage, 0.0) + (t - self._t) * 1e3
         self._t = t
+
+    def count(self, key: str, n: int = 1) -> None:
+        """Add ``n`` events under ``key`` (a count, not milliseconds)."""
+        if self.out is not None:
+            self.out[key] = self.out.get(key, 0) + n

@@ -26,6 +26,14 @@
 // capacity sets the codeblock's length to -1 (the wrapper raises). This
 // form leaves the card mostly idle (one thread a codeblock); its time is in
 // PERF.md.
+//
+// Block energy (for PCRD): given a non-null ``energy``, each thread also
+// writes its codeblock's sum(v*v) in float64, row sums first and then the
+// sum of the rows, each sequential, as grok_tpu's default HT coder does
+// (native/ht_coder.cpp:650-662; K3 computes it in float32, ht_jax.py:465,
+// and is not followed). Products and sums are IEEE-rounded double
+// intrinsics (the source is built with -fmad=false). It adds 8 bytes a
+// codeblock written to the bytes bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,16 +150,29 @@ __global__ void ht_enc_kernel(const int32_t* __restrict__ coeffs,
                               const int32_t* __restrict__ tab,
                               uint8_t* __restrict__ out,
                               uint8_t* __restrict__ scratch,
-                              int32_t* __restrict__ lengths, int n, int bh,
+                              int32_t* __restrict__ lengths,
+                              double* __restrict__ energy, int n, int bh,
                               int bw, int cap, int aux_cap) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const int h = heights[i], w = widths[i];
+    const int32_t* blk = coeffs + (int64_t)i * bh * bw;
+    if (energy) {
+        double d = 0.0;
+        for (int y = 0; y < h; ++y) {
+            double dr = 0.0;
+            for (int x = 0; x < w; ++x) {
+                const double v = (double)blk[(int64_t)y * bw + x];
+                dr = __dadd_rn(dr, __dmul_rn(v, v));
+            }
+            d = __dadd_rn(d, dr);
+        }
+        energy[i] = d;
+    }
     if (h <= 0 || w <= 0) {
         lengths[i] = 0;
         return;
     }
-    const int32_t* blk = coeffs + (int64_t)i * bh * bw;
     const int* mel_exp = tab + T_MEL_EXP;
     const int* u_pre = tab + T_U_PRE;
     const int* u_pre_len = tab + T_U_PRE_LEN;
@@ -305,17 +326,18 @@ __global__ void ht_enc_kernel(const int32_t* __restrict__ coeffs,
 
 // coeffs [n, bh, bw] int32; heights/widths [n] int32; tab: ht_tables();
 // out [n, cap] uint8 (zeroed by the caller); scratch [n, aux_cap] uint8;
-// lengths [n] int32 (-1: the codeblock overflowed its capacity).
+// lengths [n] int32 (-1: the codeblock overflowed its capacity); energy
+// [n] float64 or null (no energy).
 extern "C" int ht_cleanup_enc(const void* coeffs, const void* heights,
                               const void* widths, const void* tab, void* out,
-                              void* scratch, void* lengths, int n, int bh,
-                              int bw, int cap, int aux_cap, void* stream) {
+                              void* scratch, void* lengths, void* energy, int n,
+                              int bh, int bw, int cap, int aux_cap, void* stream) {
     if (n <= 0) return 0;
     if (bw > 2 * NQW_MAX) return (int)cudaErrorInvalidValue;
     ht_enc_kernel<<<(n + BLOCK_THREADS - 1) / BLOCK_THREADS, BLOCK_THREADS, 0,
                     (cudaStream_t)stream>>>(
         (const int32_t*)coeffs, (const int32_t*)heights, (const int32_t*)widths,
         (const int32_t*)tab, (uint8_t*)out, (uint8_t*)scratch, (int32_t*)lengths,
-        n, bh, bw, cap, aux_cap);
+        (double*)energy, n, bh, bw, cap, aux_cap);
     return (int)cudaGetLastError();
 }

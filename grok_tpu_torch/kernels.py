@@ -6,8 +6,9 @@ The build happens at first use, in ``grok_tpu_torch/build/``, one nvcc
 process per source, all started together; a library is named after the
 hash of its source and its flags, so an edited source, or one built with
 other flags, is rebuilt and an unchanged one is reused. A failed build
-raises: nothing falls back to a plain version. The float kernels of the
-9/7 path are built with -fmad=false (FLOAT_FLAGS): nvcc would otherwise
+raises: nothing falls back to a plain version. The float kernels (the 9/7
+path, and the float64 distortions, energies and hull slopes of rate
+control) are built with -fmad=false (FLOAT_FLAGS): nvcc would otherwise
 contract a product and a sum into one fused multiply-add, which rounds once
 where the host path rounds twice.
 
@@ -78,8 +79,8 @@ KERNELS: dict[str, Kernel] = {
                 _I64, _I32, _P)),
         Kernel("ht_cleanup_enc", "ht_enc.cu",
                "grok_tpu/t1/ht_jax.py:217 (K3: _encode_device, with the host "
-               "_stuff_host :503 and _compact :560)",
-               (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P)),
+               "_stuff_host :503 and _compact :560; block energy :465)",
+               (_P,) * 8 + (_I32,) * 5 + (_P,), FLOAT_FLAGS),
         Kernel("ht_cleanup_dec", "ht_dec.cu",
                "grok_tpu/t1/ht_jax_dec.py:233 (K4: _decode_device)",
                (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P)),
@@ -116,6 +117,14 @@ KERNELS: dict[str, Kernel] = {
                "grok_tpu/ops/jax_pipeline.py:198-217 (K2-inv irreversible: "
                "ops/mct.py:56 ict_inverse, DC shift, round, clip)",
                (_P,) * 6 + (_I64,) + (_F32, _I32, _I32) * 3 + (_I32, _P), FLOAT_FLAGS),
+        Kernel("ebcot_pass_dist", "ebcot_dist.cu",
+               "grok_tpu/t1/ebcot_jax.py:504 (K5-enc: _build_encoder, its per-pass "
+               "distortions _dd_sig_f32/_dd_ref_f32 :472-488)",
+               (_P,) * 4 + (_I32,) * 6 + (_P,), FLOAT_FLAGS),
+        Kernel("hull_slopes", "hull.cu",
+               "native/pipeline.cpp:630 (hull_slopes, host C++ of "
+               "grok_tpu/t2/rate_control.py:17 hull_effective_slopes)",
+               (_P,) * 4 + (_I32,) * 2 + (_P,), FLOAT_FLAGS),
     )
 }
 

@@ -13,12 +13,15 @@ The decoder (K-i ``ebcot_decode``, csrc/ebcot_dec.cu, the port of K5's
 lockstep decoder ``ebcot_jax._build_decoder``) turns codeword segments
 back into coefficients, one thread a codeblock.
 
+The per-pass distortions that a layer allocation reads come from K-p
+``ebcot_pass_dist`` (csrc/ebcot_dist.cu, the counterpart of K5-enc's
+distortion half, ``ebcot_jax._build_encoder``), over K-c's records.
+
 Each kernel has its plain torch version (``ebcot_symbols_plain``,
-``mq_pack_plain`` in this module; ``ebcot_decode_plain`` in
-t1/ebcot_dec.py). A wrapper takes the plain version only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises. Per-pass
-distortions are plain tensor ops on whatever device holds the records
-(``pass_dist_from_records``).
+``mq_pack_plain``, ``pass_dist_from_records`` in this module;
+``ebcot_decode_plain`` in t1/ebcot_dec.py). A wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -377,11 +380,41 @@ def mq_pack_plain(sym, numbps, styles, table, h: int, w: int, pmax: int):
     return buf, lengths, rates
 
 
-# ================================================ per-pass distortions
+# ============================================ K-p: per-pass distortions
+def ebcot_pass_dist(sym: torch.Tensor, coeffs: torch.Tensor, numbps: torch.Tensor,
+                    pmax: int) -> torch.Tensor:
+    """Distortion decrease per (codeblock, pass), float64 [n, max(3 pmax - 2,
+    1)], from K-c's records [n, pmaxc, 3, s_pad] uint8, the coefficients
+    [n, h, w] int32 and numbps [n] int32: each pass sums its samples'
+    decreases in slot order, as the native host coder does."""
+    n, h, w = coeffs.shape
+    dev = coeffs.device
+    _check(sym, "sym", torch.uint8, 4, dev)
+    _check(coeffs, "coeffs", torch.int32, 3, dev)
+    _check(numbps, "numbps", torch.int32, 1, dev)
+    pmaxc, s_pad = sym.shape[1], sym.shape[3]
+    if (sym.shape[0] != n or sym.shape[2] != 3 or numbps.shape != (n,) or pmax > pmaxc
+            or s_pad != slot_counts(_round_up(h, 4) // 4, w)[3]):
+        raise ValueError("sym must be [n, pmaxc >= pmax, 3, s_pad], numbps [n]")
+    if dev.type == "cpu":
+        return pass_dist_from_records(sym, coeffs, numbps, pmax)
+    if dev.type != "cuda":
+        raise ValueError(f"ebcot_pass_dist: unsupported device {dev}")
+    max_passes = max(3 * pmax - 2, 1)
+    dist = torch.empty((n, max_passes), dtype=torch.float64, device=dev)
+    kernels.KERNELS["ebcot_pass_dist"].call(
+        sym.data_ptr(), coeffs.data_ptr(), numbps.data_ptr(), dist.data_ptr(), n, pmaxc,
+        s_pad, h, w, max_passes, kernels.stream_ptr(dev))
+    return dist
+
+
 def pass_dist_from_records(sym: torch.Tensor, coeffs: torch.Tensor,
                            numbps: torch.Tensor, pmax: int) -> torch.Tensor:
-    """Distortion decrease per (lane, pass) in float64, from which records
-    became significant (SPP/CUP sign slots) or were refined (MRP slots)."""
+    """Plain form of K-p: per pass, the decreases of the records that
+    became significant (SPP/CUP sign slots) or were refined (MRP slots),
+    zero elsewhere, summed in slot order by a running sum (torch.cumsum,
+    sequential on the CPU; on the card a parallel scan, the same sum while
+    every partial sum is exact)."""
     n, h, w = coeffs.shape
     pmaxc = sym.shape[1]
     hp = _round_up(h, 4)
@@ -395,7 +428,8 @@ def pass_dist_from_records(sym: torch.Tensor, coeffs: torch.Tensor,
     dist = torch.zeros((n, max_passes), dtype=torch.float64, device=coeffs.device)
 
     def put(plane, kind, lanes, mask_ns, dd_fn):
-        dd = torch.where(mask_ns, dd_fn(mag_sxk, plane), 0.0).sum(dim=1)
+        terms = torch.where(mask_ns, dd_fn(mag_sxk, plane), 0.0)
+        dd = torch.cumsum(terms, dim=1)[:, -1]
         idx = local_pass_index(plane, kind, nb).clamp(0, max_passes - 1)[:, None]
         dist.scatter_(1, idx, torch.where(lanes, dd, dist.gather(1, idx)[:, 0])[:, None])
 
@@ -455,7 +489,7 @@ def encode_cblks(coeffs: torch.Tensor, heights, widths, orients,
     clock.mark("t1_pack")
     dist = None
     if want_dist:
-        dist = pass_dist_from_records(sym, coeffs, numbps, pmax)
+        dist = ebcot_pass_dist(sym, coeffs, lanes[0].contiguous(), pmax)
         clock.mark("t1_dist")
     return T1EncodeResult(data=buf[:, 1:], raw_data=(buf, 1), lengths=lengths,
                           numbps=numbps, npasses=npasses, pass_rates=rates,

@@ -85,13 +85,14 @@ def segment_capacity(bh: int, bw: int, mmax: int) -> tuple[int, int]:
 
 # ==================================================== K-e: cleanup encode
 def ht_cleanup_enc(coeffs: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
-                   tab: torch.Tensor, mmax: int) -> tuple[torch.Tensor, torch.Tensor]:
+                   tab: torch.Tensor, mmax: int, want_energy: bool = False):
     """Cleanup segments of a codeblock batch: (buf [n, cap] uint8, zero
     past each segment, lengths [n] int64; 0 for an empty or all-zero
-    codeblock). coeffs [n, bh, bw] int32 whose largest magnitude M gives
-    mmax = bit length of 2M - 1 (the widest MagSgn field, which sizes the
-    segments); heights/widths [n] int32; tab: ht_tables(). Raises if a
-    segment overflows its capacity."""
+    codeblock), and with ``want_energy`` a third item, each codeblock's
+    energy sum(v*v) float64 [n]. coeffs [n, bh, bw] int32 whose largest
+    magnitude M gives mmax = bit length of 2M - 1 (the widest MagSgn field,
+    which sizes the segments); heights/widths [n] int32; tab: ht_tables().
+    Raises if a segment overflows its capacity."""
     n, bh, bw = coeffs.shape
     dev = coeffs.device
     _check(coeffs, "coeffs", torch.int32, 3, dev)
@@ -104,19 +105,37 @@ def ht_cleanup_enc(coeffs: torch.Tensor, heights: torch.Tensor, widths: torch.Te
         raise ValueError("codeblocks wider than 1024")
     cap, aux = segment_capacity(bh, bw, mmax)
     if dev.type == "cpu":
-        return ht_cleanup_enc_plain(coeffs, heights, widths, cap)
+        out = ht_cleanup_enc_plain(coeffs, heights, widths, cap)
+        return (*out, block_energy_plain(coeffs, heights, widths)) if want_energy else out
     if dev.type != "cuda":
         raise ValueError(f"ht_cleanup_enc: unsupported device {dev}")
     buf = torch.zeros((n, cap), dtype=torch.uint8, device=dev)
     scratch = torch.empty((n, aux), dtype=torch.uint8, device=dev)
     lengths = torch.empty(n, dtype=torch.int32, device=dev)
+    energy = torch.empty(n, dtype=torch.float64, device=dev) if want_energy else None
     kernels.KERNELS["ht_cleanup_enc"].call(
         coeffs.data_ptr(), heights.data_ptr(), widths.data_ptr(), tab.data_ptr(),
-        buf.data_ptr(), scratch.data_ptr(), lengths.data_ptr(), n, bh, bw, cap, aux,
+        buf.data_ptr(), scratch.data_ptr(), lengths.data_ptr(),
+        energy.data_ptr() if want_energy else None, n, bh, bw, cap, aux,
         kernels.stream_ptr(dev))
     if bool((lengths < 0).any()):
         raise RuntimeError("ht_cleanup_enc: codeblock segment buffer overflow")
-    return buf, lengths.to(torch.int64)
+    out = (buf, lengths.to(torch.int64))
+    return (*out, energy) if want_energy else out
+
+
+def block_energy_plain(coeffs: torch.Tensor, heights: torch.Tensor,
+                       widths: torch.Tensor) -> torch.Tensor:
+    """Plain form of K-e's energy: float64 [n], each codeblock's row sums of
+    v*v inside its heights x widths and then the sum of its rows, both
+    running sums (torch.cumsum, sequential on the CPU) as the reference's
+    HT coder adds them; the zeros outside a codeblock add nothing."""
+    n, bh, bw = coeffs.shape
+    ys = torch.arange(bh, device=coeffs.device)[None, :, None]
+    xs = torch.arange(bw, device=coeffs.device)[None, None, :]
+    inside = (ys < heights[:, None, None]) & (xs < widths[:, None, None])
+    v = torch.where(inside, coeffs.to(torch.float64), 0.0)
+    return torch.cumsum(torch.cumsum(v * v, dim=2)[:, :, -1], dim=1)[:, -1]
 
 
 def ht_cleanup_enc_plain(coeffs, heights, widths, cap: int):
@@ -187,12 +206,13 @@ def _int32(t, dev: torch.device) -> torch.Tensor:
 
 
 def encode_cblks(coeffs: torch.Tensor, heights, widths,
-                 clock: StageClock | None = None) -> T1EncodeResult:
+                 clock: StageClock | None = None, want_dist: bool = True) -> T1EncodeResult:
     """HT cleanup-only encode of a codeblock batch on the device holding
     ``coeffs`` (counterpart of ht_jax.encode_cblks): every non-empty
     codeblock codes one pass, numbps = npasses = (length > 0) and
-    pass_rates = lengths. No distortions: only a layer allocation would
-    read them, and none is ported."""
+    pass_rates = lengths. With ``want_dist`` pass_dist [N, 1] is each
+    codeblock's energy, what PCRD reads as the distortion its one pass
+    removes; without it pass_dist is None."""
     clock = clock or StageClock(coeffs.device, None)
     dev = coeffs.device
     coeffs = coeffs.to(torch.int32).contiguous()
@@ -201,12 +221,14 @@ def encode_cblks(coeffs: torch.Tensor, heights, widths,
         raise UnsupportedFeatureError(
             f"HT encode of magnitudes >= 2**24 (largest {mx})")
     mmax = max((2 * mx - 1).bit_length(), 1)
-    buf, lengths = ht_cleanup_enc(coeffs, _int32(heights, dev), _int32(widths, dev),
-                                  ht_tables(dev), mmax)
+    out = ht_cleanup_enc(coeffs, _int32(heights, dev), _int32(widths, dev),
+                         ht_tables(dev), mmax, want_energy=want_dist)
     clock.mark("t1_ht_enc")
+    buf, lengths = out[:2]
     numbps = (lengths > 0).to(torch.int64)
     return T1EncodeResult(data=buf, lengths=lengths, numbps=numbps, npasses=numbps.clone(),
-                          pass_rates=lengths[:, None].clone(), pass_dist=None)
+                          pass_rates=lengths[:, None].clone(),
+                          pass_dist=out[2][:, None] if want_dist else None)
 
 
 def decode_cleanup_batch(data: torch.Tensor, lengths, heights, widths, bh: int, bw: int,

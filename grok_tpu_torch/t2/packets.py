@@ -143,10 +143,13 @@ class PrecinctCtx:
         self.imsb_tree.set_values(imsb)
 
 
-def encode_packet(prc_ctxs: list[PrecinctCtx], layer: int) -> bytes:
-    """Encode one packet: all bands of one precinct of one res/comp/layer."""
+def encode_packet(prc_ctxs: list[PrecinctCtx], layer: int, simulate: bool = False):
+    """Encode one packet: all bands of one precinct of one res/comp/layer.
+    Returns its bytes, or with ``simulate`` only its length (the header
+    state advances either way)."""
     bio = BitWriter()
     body = bytearray()
+    body_len = 0
     any_data = any(
         cb is not None and layer < len(cb.layer_passes)
         and cb.layer_passes[layer] > 0
@@ -199,10 +202,14 @@ def encode_packet(prc_ctxs: list[PrecinctCtx], layer: int) -> bytes:
                 for np_s, nb_s in zip(splits, seg_bytes):
                     bio.write_bits(nb_s, cb.lblock + _floor_log2(np_s))
                 nbytes = sum(seg_bytes)
-                body += cb.data[cb.bytes_done: cb.bytes_done + nbytes].tobytes()
+                if not simulate:
+                    body += cb.data[cb.bytes_done: cb.bytes_done + nbytes].tobytes()
+                body_len += nbytes
                 cb.bytes_done += nbytes
                 cb.passes_done += npl
     bio.flush()
+    if simulate:
+        return len(bio.getvalue()) + body_len
     return bio.getvalue() + bytes(body)
 
 

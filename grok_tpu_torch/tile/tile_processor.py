@@ -4,15 +4,21 @@ codeblock scatter -> inverse transform (5/3, or dequantization and 9/7).
 
 Counterpart of grok_tpu/tile/tile_processor.py: the device branch of
 compress (:249-279), _entropy_and_t2 (:400) with its HT branch
-(:492-538) and the Python _emit_packets (:655) for one quality layer
-without rate control (every pass of every codeblock goes into the single
-layer); and decompress (:1303) over the object T2 path
-_decompress_t1_objects (:1154, layer limits and the merge of segment
-pieces included) with the device inverse chain (:1422-1442).
+(:492-538), its PCRD rate control (the simulate-then-write loop :566-606,
+_allocate_layers :762 with the exact-rate simulation of the default
+native path, _layer_targets :737, _mct_weights :866) and the Python
+_emit_packets (:655) for any number of quality layers; and decompress
+(:1303) over the object T2 path _decompress_t1_objects (:1154, layer
+limits and the merge of segment pieces included) with the device inverse
+chain (:1422-1442). The plane-limited re-encode of the reference
+(GROK_TPU_RATE_SKIP, :509-529) is not ported: it needs its host T1.
 
 The coefficients stay on the device from the transform through the
-gather and the T1 kernels; only the codeblock bytes, lengths, pass rates
-and plane counts come back to the host, for T2. On decode the segments
+gather and the T1 kernels; only the codeblock bytes, lengths, repaired
+pass rates, plane counts and, for rate control, the weighted pass
+distortions and their hull slopes (K-q) come back to the host, once, for
+PCRD and T2. The threshold search and its packet simulations run on the
+host, as in the reference. On decode the segments
 go up once (Part-1: back to back in one buffer; HT: padded rows) and the
 decoded samples come back once.
 """
@@ -24,15 +30,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..codestream.quantizer import apply_band_quant
+from ..codestream.quantizer import apply_band_quant, band_norm
 from ..codestream.structs import Siz, Tcp
 from ..core.errors import UnsupportedFeatureError
-from ..core.params import CBLK_HT
+from ..core.params import CBLK_HT, CompressParams
 from ..core.rect import Rect, ceil_div
 from ..core.timing import StageClock
 from ..ops.transform import forward_transform, inverse_transform
 from ..t1 import ebcot_cuda, ht_cuda
 from ..t1.ebcot_dec import SEGMENTED
+from ..t2 import rate_control
 from ..t2.packets import (CblkDec, CblkEnc, PrecinctCtx, decode_packet, encode_packet,
                           merge_segments)
 from ..t2.progression import packet_order
@@ -51,17 +58,23 @@ def _band_origin_in_packed(geom: TileCompGeom, res_idx: int, orient: int):
     return prev.height, prev.width  # HH
 
 
-def _repair_pass_rates(pass_rates: np.ndarray, npasses: np.ndarray) -> None:
-    """Suffix-min monotone repair of the conservative pass rates, in place
-    (T2 segment lengths are differences of rates, so they must not drop)."""
-    if pass_rates.size == 0:
-        return
-    cols = np.arange(pass_rates.shape[1])
+def _repaired_pass_rates(pass_rates: torch.Tensor, npasses: torch.Tensor) -> torch.Tensor:
+    """Suffix-min monotone repair of the conservative pass rates int64
+    [n, P], on their device (T2 segment lengths are differences of rates,
+    so they must not drop); passes beyond npasses [n] stay as they are."""
+    if pass_rates.numel() == 0:
+        return pass_rates
+    cols = torch.arange(pass_rates.shape[1], device=pass_rates.device)
     pad = cols[None, :] >= npasses[:, None]
-    big = np.iinfo(pass_rates.dtype).max
-    work = np.where(pad, big, pass_rates)
-    work = np.minimum.accumulate(work[:, ::-1], axis=1)[:, ::-1]
-    pass_rates[...] = np.where(pad, pass_rates, work)
+    work = pass_rates.masked_fill(pad, torch.iinfo(pass_rates.dtype).max)
+    work = work.flip(1).cummin(1).values.flip(1)
+    return torch.where(pad, pass_rates, work)
+
+
+def _repair_pass_rates(pass_rates: np.ndarray, npasses: np.ndarray) -> None:
+    """``_repaired_pass_rates`` of host arrays, in place."""
+    pass_rates[...] = _repaired_pass_rates(torch.from_numpy(pass_rates),
+                                           torch.from_numpy(np.asarray(npasses))).numpy()
 
 
 def _block_index(base, stride, heights, widths, bh: int,
@@ -87,6 +100,17 @@ class _CblkRef:
 
 
 @dataclass
+class _T1Host:
+    """A tile's T1 results on the host, what PCRD and T2 read."""
+
+    data: np.ndarray  # [n, maxlen] uint8 segment bytes
+    lengths: np.ndarray  # [n]
+    rates: np.ndarray  # [n, P] int64 cumulative pass rates, repaired
+    numbps: np.ndarray  # [n]
+    npasses: np.ndarray  # [n]
+
+
+@dataclass
 class _GatherPlan:
     """Codeblock layout of one tile: per-lane refs and the device tensors
     the gather indexes with."""
@@ -101,9 +125,12 @@ class _GatherPlan:
 
 
 class TileProcessor:
-    def __init__(self, siz: Siz, tcp: Tcp, tile_index: int, device: torch.device):
+    def __init__(self, siz: Siz, tcp: Tcp, tile_index: int, device: torch.device,
+                 params: CompressParams | None = None):
         self.siz = siz
         self.tcp = tcp
+        # the encoder's parameters: rate control reads their targets
+        self.params = params or CompressParams()
         self.device = torch.device(device)
         self.tile_index = tile_index
         self.tile_rect = siz.tile_bounds(tile_index)
@@ -198,11 +225,53 @@ class TileProcessor:
                                    cbh, cbw)
         return flat[torch.where(inside, idx, flat.numel() - 1)]
 
+    def _layer_targets(self) -> list[float | None] | None:
+        """Cumulative byte budgets per layer from the configured ratios, for
+        this tile's area and precisions (the reference's :737)."""
+        rates_cfg = self.params.layer_rates
+        if not rates_cfg:
+            return None
+        tile_bits = 0
+        for c in range(self.siz.num_comps):
+            tile_bits += self.geoms[c].rect.area * self.siz.comps[c].prec
+        tile_bytes = tile_bits / 8.0
+        targets: list[float | None] = []
+        for li in range(self.tcp.num_layers):
+            ratio = rates_cfg[li] if li < len(rates_cfg) else 0
+            targets.append(None if not ratio or ratio <= 1.0 else tile_bytes / float(ratio))
+        return targets
+
     def _needs_pass_dist(self) -> bool:
-        """Whether a layer allocation reads per-pass distortions (the
-        reference's _needs_pass_dist, :753): only with several layers, as
-        rate and PSNR targets are outside the slices."""
-        return self.tcp.num_layers != 1
+        """Whether PCRD reads per-pass distortions (the reference's :753):
+        not for one layer without rate or quality targets, which takes
+        every pass."""
+        p = self.params
+        return self.tcp.num_layers != 1 or bool(p.layer_rates or p.layer_psnrs)
+
+    def _mct_weights(self) -> list[float]:
+        """L2 norms of the inverse MCT's columns, the error-propagation
+        weights of each component (the reference's :866), from the float64
+        matrices."""
+        ncomp = self.siz.num_comps
+        if not self._mct():
+            return [1.0] * ncomp
+        m = rate_control.ICT_INV64 if self.irreversible else rate_control.RCT_INV_LINEAR
+        return rate_control.mct_column_weights(m) + [1.0] * (ncomp - 3)
+
+    def _band_weights(self, refs: list[_CblkRef]) -> np.ndarray:
+        """Each codeblock's distortion weight (step * band norm * MCT
+        weight)^2 float64 [n] (the reference's :784-805)."""
+        mct_w = self._mct_weights()
+        per_band: dict[tuple[int, int, int], float] = {}
+        for c, g in enumerate(self.geoms):
+            tccp = self.tcp.tccps[c]
+            nl = tccp.num_resolutions - 1
+            for res in g.resolutions:
+                for bi, band in enumerate(res.bands):
+                    lvl = nl - res.r + 1 if band.orient != BAND_LL else nl
+                    bn = band_norm(band.orient, lvl, tccp.irreversible)
+                    per_band[(c, res.r, bi)] = (band.step * bn * mct_w[c]) ** 2
+        return np.array([per_band[(r.comp, r.res, r.band_i)] for r in refs], dtype=np.float64)
 
     def _entropy_and_t2(self, coeffs: list[torch.Tensor], clock: StageClock):
         plan = self.gather_plan()
@@ -211,29 +280,118 @@ class TileProcessor:
         batch = self.gather(coeffs, plan)
         clock.mark("gather")
         use_ht = bool(self.tcp.tccps[0].cblk_style & CBLK_HT)
+        want_dist = self._needs_pass_dist()
         if use_ht:
-            res = ht_cuda.encode_cblks(batch, plan.heights, plan.widths, clock=clock)
+            res = ht_cuda.encode_cblks(batch, plan.heights, plan.widths, clock=clock,
+                                       want_dist=want_dist)
         else:
             res = ebcot_cuda.encode_cblks(batch, plan.heights, plan.widths, plan.orients,
                                styles=plan.styles, clock=clock,
-                               want_dist=self._needs_pass_dist())
-        maxlen = int(res.lengths.max())
-        data = res.data[:, :maxlen].cpu().numpy()
-        lengths = res.lengths.cpu().numpy()
-        rates = res.pass_rates.cpu().numpy()
-        numbps = res.numbps.cpu().numpy()
-        npasses = res.npasses.cpu().numpy()
-        clock.mark("to_host")
+                               want_dist=want_dist)
+        rates = res.pass_rates
         if not use_ht:  # an HT codeblock has one pass: nothing to repair
-            _repair_pass_rates(rates, npasses)
-        out = self._emit_packets(plan.refs, data, lengths, rates, numbps, npasses)
-        clock.mark("t2")
-        return out
+            rates = _repaired_pass_rates(rates, res.npasses)
+        if want_dist:
+            # PCRD's inputs stay on the device for the hull: the distortions
+            # weighted by their band, and the slopes of each codeblock's hull
+            w2 = torch.from_numpy(self._band_weights(plan.refs)).to(self.device)
+            dists = res.pass_dist * w2[:, None]
+            slopes = rate_control.hull_slopes(rates, dists,
+                                              res.npasses.to(torch.int32).contiguous())
+            clock.mark("hull")
+        maxlen = int(res.lengths.max())
+        t1 = _T1Host(data=res.data[:, :maxlen].cpu().numpy(),
+                     lengths=res.lengths.cpu().numpy(), rates=rates.cpu().numpy(),
+                     numbps=res.numbps.cpu().numpy(), npasses=res.npasses.cpu().numpy())
+        if want_dist:
+            dists, slopes = dists.cpu().numpy(), slopes.cpu().numpy()
+        clock.mark("to_host")
+        order = packet_order(self.siz, self.tcp, self.geoms, self.tile_rect)
+        if not want_dist:
+            out = self._emit_packets(plan.refs, t1, t1.npasses[None, :].astype(np.int64), order)
+            clock.mark("t2")
+            return out
 
-    def _emit_packets(self, refs, data, lengths, rates, numbps, npasses):
-        """T2 for one layer holding every pass: per-precinct header state,
-        then packets in progression order."""
+        # ---- PCRD: the simulate-then-write loop of the reference
+        # (:566-606): a layer allocation, the packets, and a tighter budget
+        # while the packets overshoot the rate target
+        targets = self._layer_targets()
+        shrink = 0
+        for _attempt in range(4):
+            cum_passes = self._allocate_layers(plan.refs, t1, dists, slopes, order, clock,
+                                               extra_margin=shrink)
+            clock.mark("pcrd")
+            body = self._emit_packets(plan.refs, t1, cum_passes, order)
+            clock.mark("t2")
+            if targets is None or targets[-1] is None:
+                break
+            total = len(body)
+            if total <= targets[-1]:
+                break
+            shrink += total - targets[-1] + 16
+        return body
+
+    def _allocate_layers(self, refs, t1: _T1Host, dists: np.ndarray, slopes: np.ndarray,
+                         order, clock: StageClock, extra_margin: float = 0.0) -> np.ndarray:
+        """Cumulative pass counts per layer [L, N] (the reference's :762):
+        rate targets through exact packet simulations (or, with
+        rc_algorithm=1, a header estimate), PSNR targets through the
+        residual distortion. ``clock`` counts the simulations under
+        ``pcrd_simulations``."""
+        p = self.params
+        num_layers = self.tcp.num_layers
+        targets = self._layer_targets() or [None] * num_layers
+        targets = [None if t is None else max(t - extra_margin, 0.0) for t in targets]
+
+        # fixed-quality (PSNR) layers: residual-distortion ceilings in the
+        # weighted (image-domain) squared-error units of `dists`
+        dist_targets = None
+        if p.layer_psnrs:
+            samples = sum(g.rect.area for g in self.geoms)
+            peak = max((1 << c.prec) - 1 for c in self.siz.comps)
+            dist_targets = [
+                None if (q is None or q <= 0)
+                else samples * float(peak) ** 2 / (10.0 ** (q / 10.0))
+                for q in p.layer_psnrs
+            ]
+
+        exact_rate_fn = None
+        if p.rc_algorithm != 1:
+            def exact_rate_fn(rows):
+                clock.count("pcrd_simulations")
+                return self._emit_packets(refs, t1, np.stack(rows).astype(np.int64), order,
+                                          simulate=True)
+
+        n_prc = sum(res.num_precincts for g in self.geoms for res in g.resolutions)
+        per_pkt = 1.2  # no SOP or EPH markers (the reference adds 6 and 2)
+
+        def header_overhead(cum):
+            # per-packet floor + ~4 bytes per included block's header
+            return n_prc * per_pkt + int((cum > 0).sum()) * 4.0
+
+        return rate_control.allocate_layers(
+            t1.rates, dists, t1.npasses, targets, header_overhead,
+            exact_rate_fn=exact_rate_fn, dist_targets=dist_targets, slopes=slopes)
+
+    def _emit_packets(self, refs, t1: _T1Host, cum_passes: np.ndarray, order,
+                      simulate: bool = False):
+        """T2 of the first L = len(cum_passes) quality layers, codeblock i
+        holding cum_passes[l, i] passes after layer l: fresh precinct
+        header state, then the packets of those layers in progression order.
+        Returns the body, or with ``simulate`` its length only (the
+        reference's native simulation, T2Compress compressPacketsSimulate)."""
         siz, tcp = self.siz, self.tcp
+        num_layers = cum_passes.shape[0]
+        prev = np.concatenate([np.zeros_like(cum_passes[:1]), cum_passes[:-1]])
+        layer_passes = cum_passes - prev
+        rate_at = np.take_along_axis(t1.rates, np.maximum(cum_passes.T - 1, 0), axis=1).T
+        rate_at = np.where(cum_passes > 0, rate_at, 0)
+        rate_prev = np.concatenate([np.zeros_like(rate_at[:1]), rate_at[:-1]])
+        layer_bytes = np.where(layer_passes > 0, rate_at - rate_prev, 0)
+        has = layer_passes > 0
+        first_layer = np.where(has.any(axis=0), has.argmax(axis=0), num_layers)
+        lp_cols, lb_cols = layer_passes.T.tolist(), layer_bytes.T.tolist()
+
         prc_ctx_map: dict[tuple[int, int, int, int], PrecinctCtx] = {}
         for c in range(siz.num_comps):
             for res in self.geoms[c].resolutions:
@@ -241,29 +399,33 @@ class TileProcessor:
                     for pi, prc in enumerate(band.precincts):
                         prc_ctx_map[(c, res.r, bi, pi)] = PrecinctCtx(band, prc)
         for i, ref in enumerate(refs):
-            k = int(npasses[i])
-            nbytes = int(rates[i, k - 1]) if k > 0 else 0
             cb = CblkEnc(
-                data=data[i],
-                total_len=int(lengths[i]),
-                npasses=k,
-                numbps=int(numbps[i]),
-                layer_passes=[k],
-                layer_bytes=[nbytes],
-                first_layer=0 if k > 0 else 1,
+                data=t1.data[i],
+                total_len=int(t1.lengths[i]),
+                npasses=int(t1.npasses[i]),
+                numbps=int(t1.numbps[i]),
+                layer_passes=lp_cols[i],
+                layer_bytes=lb_cols[i],
+                first_layer=int(first_layer[i]),
                 style=int(tcp.tccps[ref.comp].cblk_style) & 0x3F,
-                pass_rates=rates[i],
+                pass_rates=t1.rates[i],
             )
             prc_ctx_map[(ref.comp, ref.res, ref.band_i, ref.prec)].cblks[ref.cblk_i] = cb
         for ctx in prc_ctx_map.values():
-            ctx.set_encoder_trees(tcp.num_layers)
+            ctx.set_encoder_trees(num_layers)
         parts: list[bytes] = []
-        for pk in packet_order(siz, tcp, self.geoms, self.tile_rect):
+        total = 0
+        for pk in order:
+            if pk.layer >= num_layers:
+                continue  # a simulation of the first layers only
             res = self.geoms[pk.comp].resolutions[pk.res]
             ctxs = [prc_ctx_map[(pk.comp, pk.res, bi, pk.prec)]
                     for bi in range(len(res.bands))]
-            parts.append(encode_packet(ctxs, pk.layer))
-        return b"".join(parts)
+            if simulate:
+                total += encode_packet(ctxs, pk.layer, simulate=True)
+            else:
+                parts.append(encode_packet(ctxs, pk.layer))
+        return total if simulate else b"".join(parts)
 
     # ------------------------------------------------------------ decode
     def decompress(self, body, clock: StageClock | None = None,

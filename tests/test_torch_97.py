@@ -279,7 +279,10 @@ def test_three_layer_stream_at_every_max_layers():
 
 @pytest.mark.parametrize("kw", [
     dict(mct_matrix=np.eye(3)), dict(custom_mct=np.eye(3)), dict(roi_comp=0, roi_shift=2),
-    dict(num_layers=2), dict(layer_rates=[8.0]), dict(layer_psnrs=[40.0]),
+    # layers and rate or quality targets are ported: the refusals beside
+    # them stay
+    dict(num_layers=2, use_eph=True), dict(layer_rates=[8.0], write_tlm=True),
+    dict(layer_psnrs=[40.0], tp_divider="R"),
     dict(precinct_sizes=[(7, 7)]), dict(use_sop=True), dict(write_plt=True),
     dict(progression_changes=[gt.core.params.ProgressionChange(0, 0, 1, 2, 1,
                                                                 gt.ProgressionOrder.LRCP)]),

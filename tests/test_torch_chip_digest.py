@@ -1,15 +1,16 @@
 """chip_smoke.py's pinned digests come from grok_tpu itself.
 
 chip_smoke.py holds every stream the card writes to ``REF_SHA256``, every
-9/7 decode to ``REF_MD5`` and every corpus decode to ``CORPUS_REF_MD5``:
-these tests make ``grok_tpu.compress`` write the same images on the CPU (as
-Part-1, HTJ2K and 9/7 streams) and ``grok_tpu.decompress`` decode them and
-the corpus, and check the constants, so a wrong constant cannot pass on
-the card."""
+9/7 and rate-controlled decode to ``REF_MD5`` and every corpus decode to
+``CORPUS_REF_MD5``: these tests make ``grok_tpu.compress`` write the same
+images on the CPU (as Part-1, HTJ2K, 9/7 and layered, rate-controlled
+streams) and ``grok_tpu.decompress`` decode them and the corpus, and check
+the constants, so a wrong constant cannot pass on the card."""
 
 import functools
 import hashlib
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -62,6 +63,37 @@ def test_reference_97_stream_and_decode_have_the_pinned_digests(h, w):
     assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
     back = grok_tpu.decompress(out)
     assert golden_md5([c.data for c in back.components]) == chip_smoke.REF_MD5[key]
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.RC_CASES))
+def test_reference_rc_streams_and_decodes_have_the_pinned_digests(case):
+    arr = natural_image(256, 256, chip_smoke.NC)
+    out = grok_tpu.compress(grok_tpu.Image.from_array(arr),
+                            grok_tpu.CompressParams(**chip_smoke.RC_CASES[case]))
+    key = f"{case} 256x256x{chip_smoke.NC}"
+    assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
+    for k in (0, 1):
+        back = grok_tpu.decompress(out, grok_tpu.DecompressParams(max_layers=k))
+        assert golden_md5([c.data for c in back.components]) == chip_smoke.REF_MD5[f"{key} L{k}"]
+
+
+def test_reference_1bpp_stream_and_decode_have_the_pinned_digests():
+    """bench.py's lossy97_1bpp row at full size."""
+    arr = natural_image(chip_smoke.H, chip_smoke.W, chip_smoke.NC)
+    out = grok_tpu.compress(grok_tpu.Image.from_array(arr),
+                            grok_tpu.CompressParams(**chip_smoke.P1BPP))
+    key = f"1bpp {chip_smoke.H}x{chip_smoke.W}x{chip_smoke.NC}"
+    assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
+    back = grok_tpu.decompress(out)
+    assert golden_md5([c.data for c in back.components]) == chip_smoke.REF_MD5[key]
+
+
+def test_p1bpp_is_benchs_lossy97_1bpp_row():
+    src = (Path(__file__).resolve().parents[1] / "bench.py").read_text()
+    assert re.search(r'"lossy97_1bpp": \(\s*gk\.CompressParams\(num_resolutions=6, '
+                     r'irreversible=True,\s*num_layers=1, layer_rates=\[8\]\)', src)
+    assert chip_smoke.P1BPP == dict(num_resolutions=6, irreversible=True, num_layers=1,
+                                    layer_rates=[8])
 
 
 def test_corpus_digests_are_the_reference_decodes():

@@ -18,6 +18,12 @@ from grok_tpu_torch.ops import transform as tr
 from grok_tpu_torch.t1 import ht as port_ht
 from grok_tpu_torch.t1.ebcot_cuda import device_tables
 from grok_tpu_torch.t1.ht_cuda import ht_tables
+from grok_tpu.codestream.compress import build_siz as ref_build_siz
+from grok_tpu.codestream.compress import build_tcp as ref_build_tcp
+from grok_tpu.tile.tile_processor import TileProcessor as RefTileProcessor
+from grok_tpu_torch.codestream.compress import build_siz as port_build_siz
+from grok_tpu_torch.codestream.compress import build_tcp as port_build_tcp
+from grok_tpu_torch.tile.tile_processor import TileProcessor
 
 
 def _reference_tables() -> dict:
@@ -30,6 +36,10 @@ def _reference_tables() -> dict:
         "LIFT97": np.float32([dwt.ALPHA, dwt.BETA, dwt.GAMMA, dwt.DELTA, dwt.K, 1.0 / dwt.K]),
         "ICT_FWD": mct._ICT_FWD.astype(np.float32),
         "ICT_INV": mct._ICT_INV.astype(np.float32),
+        "ICT_INV64": mct._ICT_INV,
+        # the linearised inverse RCT of grok_tpu's _mct_weights
+        "RCT_INV_LINEAR": np.array([[1.0, -0.25, 0.75], [1.0, -0.25, -0.25],
+                                    [1.0, 0.75, -0.25]]),
         **{k: getattr(ht, k) for k in convert.HT_TABLES},
     }
 
@@ -38,7 +48,8 @@ def test_reference_tables_equal_builtin_copies():
     ref = convert.tables_from_numpy(_reference_tables(), device="cpu")
     own = convert.builtin_tables(device="cpu")
     assert set(ref) == set(own) == {"ctx", "mq", "band_norms", "band_norms97", "lift97",
-                                    "ict_fwd", "ict_inv", "ht"}
+                                    "ict_fwd", "ict_inv", "ht", "ict_inv64",
+                                    "rct_inv_linear", "mct_w97", "mct_w53"}
     assert torch.equal(ref["ctx"], own["ctx"]) and ref["ctx"].dtype == torch.int32
     assert torch.equal(ref["mq"], own["mq"]) and tuple(ref["mq"].shape) == (4, 47)
     # the norms come from the same float64 recurrences: equal to the last bit
@@ -60,6 +71,34 @@ def test_reference_97_tables_equal_builtin_copies():
     # and they are what the kernels are given
     dev = device_tables(torch.device("cpu"))
     assert torch.equal(dev["ctx"], own["ctx"]) and torch.equal(dev["mq"], own["mq"])
+
+
+@pytest.mark.parametrize("irreversible,mct_on,nc", [
+    (True, True, 3), (False, True, 3), (True, True, 4), (False, None, 4), (True, 0, 3),
+    (False, None, 1), (True, None, 2)])
+def test_mct_weights_equal_reference(irreversible, mct_on, nc):
+    """Rate control's MCT weights: the float64 inverse matrices equal
+    grok_tpu's to the last bit, their column norms are what its
+    _mct_weights gives for the same image and parameters, and the port's
+    tile processor uses them."""
+    ref = convert.tables_from_numpy(_reference_tables(), device="cpu")
+    own = convert.builtin_tables(device="cpu")
+    for k in ("ict_inv64", "rct_inv_linear", "mct_w97", "mct_w53"):
+        assert own[k].dtype == torch.float64 and torch.equal(ref[k], own[k]), k
+    arr = np.zeros((8, 8, nc), dtype=np.int32)
+    kw = dict(irreversible=irreversible, mct=mct_on, num_resolutions=2)
+    img = gk.Image.from_array(arr)
+    img.finalize()
+    want = RefTileProcessor(ref_build_siz(img, gk.CompressParams(**kw)),
+                            ref_build_tcp(img, gk.CompressParams(**kw)), 0)._mct_weights()
+    pimg = gt.Image.from_array(arr)
+    pimg.finalize()
+    pp = gt.CompressParams(**kw)
+    got = TileProcessor(port_build_siz(pimg, pp), port_build_tcp(pimg, pp), 0, "cpu",
+                        pp)._mct_weights()
+    assert got == want
+    if nc >= 3 and mct_on != 0:
+        assert got[:3] == own["mct_w97" if irreversible else "mct_w53"].tolist()
 
 
 def test_reference_ht_tables_equal_builtin_copies():
@@ -87,7 +126,8 @@ def test_tables_of_the_wrong_shape_raise():
     with pytest.raises(ValueError):
         convert.tables_from_numpy(d)
     for key, cut in (("band_norms", np.s_[:, :5]), ("band_norms97", np.s_[:2]),
-                     ("LIFT97", np.s_[:5]), ("ICT_INV", np.s_[:2])):
+                     ("LIFT97", np.s_[:5]), ("ICT_INV", np.s_[:2]),
+                     ("ICT_INV64", np.s_[:, :2]), ("RCT_INV_LINEAR", np.s_[:1])):
         d = _reference_tables()
         d[key] = d[key][cut]
         with pytest.raises(ValueError):

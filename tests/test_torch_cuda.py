@@ -5,9 +5,10 @@ present; on a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
 
 Every comparison is exact: the nine kernels of the lossless paths are
-integer-only, and the six of the 9/7 path (K-j ... K-o) round every float
+integer-only, the six of the 9/7 path (K-j ... K-o) round every float
 product and sum on their own, as their plain versions do, so they are
-compared on their float32 bits."""
+compared on their float32 bits, and the float64 sums of rate control (K-p,
+K-e's energy, K-q) run in their plain versions' order."""
 
 import numpy as np
 import pytest
@@ -598,3 +599,94 @@ def test_97_path_on_card_equals_plain_path(cuda, ht):
     assert all(counts[k] > 0 for k in ("dc_ict_fwd", "dwt97_fwd_level", "quant_deadzone",
                                        "dequant_midbin", "dwt97_inv_level",
                                        "ict_inv_dc_round_clip"))
+
+
+# ------------------------------------- rate control: K-p, K-e's energy, K-q
+# (24, 16, 16, 24): magnitudes up to 2^24, where the decreases reach 2^49
+# and their partial sums round, so only a sum in the plain version's order
+# agrees
+@pytest.mark.parametrize("n,h,w,bits", [(24, 64, 64, 12), (24, 13, 16, 9), (24, 7, 5, 12),
+                                        (12, 32, 32, 17), (24, 16, 16, 24)])
+def test_pass_dist_kernel_equals_plain(cuda, n, h, w, bits):
+    c, lanes, pmax = _batch(h * w + bits + 3, n, h, w, _STYLES, bits=bits)
+    pmaxc = -(-pmax // 4) * 4
+    sym = ec.ebcot_symbols(c.to(cuda), lanes.to(cuda), ec.device_tables(cuda)["ctx"], pmaxc)
+    before = _launches("ebcot_pass_dist")
+    got = ec.ebcot_pass_dist(sym, c.to(cuda), lanes[0].contiguous().to(cuda), pmax)
+    torch.cuda.synchronize()
+    assert _launches("ebcot_pass_dist") == before + 1
+    ref = ec.pass_dist_from_records(sym.cpu(), c, lanes[0], pmax)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (n, max(3 * pmax - 2, 1))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("case", ["64x64", "16x16", "ragged", "odd", "stuffing"])
+def test_ht_energy_kernel_equals_plain(cuda, case):
+    """K-e with its energy output: the energies equal the plain sums and
+    the segments are those of K-e without it."""
+    c, h, w = _ht_cases()[case]
+    mmax = max((2 * int(c.abs().max()) - 1).bit_length(), 1)
+    before = _launches("ht_cleanup_enc")
+    buf, lens, energy = hc.ht_cleanup_enc(c.to(cuda), h.to(cuda), w.to(cuda),
+                                          hc.ht_tables(cuda), mmax, want_energy=True)
+    torch.cuda.synchronize()
+    assert _launches("ht_cleanup_enc") == before + 1
+    assert energy.dtype == torch.float64
+    assert torch.equal(energy.cpu(), hc.block_energy_plain(c, h, w))
+    rbuf, rlen = hc.ht_cleanup_enc(c, h, w, hc.ht_tables(torch.device("cpu")), mmax)
+    assert torch.equal(lens.cpu(), rlen) and torch.equal(buf.cpu(), rbuf)
+
+
+def _hull_inputs(seed, n=300, p=40):
+    """Integer rates with zero-length steps, distortions with zeros, repeats
+    and real values, and rows with no passes: ties everywhere."""
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(0, 4, size=(n, p))
+    steps[rng.random((n, p)) < 0.3] = 0
+    rates = np.cumsum(steps, axis=1).astype(np.int64)
+    dists = rng.integers(0, 5, size=(n, p)).astype(np.float64) * 4.0
+    dists[rng.random((n, p)) < 0.25] = 0.0
+    dists[n // 2:] *= rng.random((n - n // 2, p))
+    npasses = rng.integers(0, p + 1, size=n).astype(np.int32)
+    npasses[:5] = 0
+    npasses[5:10] = p
+    return torch.from_numpy(rates), torch.from_numpy(dists), torch.from_numpy(npasses)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_hull_kernel_equals_plain(cuda, seed):
+    from grok_tpu_torch.t2 import rate_control as rc
+
+    rates, dists, npasses = _hull_inputs(seed)
+    before = _launches("hull_slopes")
+    got = rc.hull_slopes(rates.to(cuda), dists.to(cuda), npasses.to(cuda))
+    torch.cuda.synchronize()
+    assert _launches("hull_slopes") == before + 1
+    assert torch.equal(got.cpu(), rc.hull_slopes(rates, dists, npasses))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(irreversible=True, num_layers=3, layer_rates=[32, 16, 8]),
+    dict(num_layers=2, layer_rates=[16, 1], cblk_style=0x3F),
+    dict(irreversible=True, num_layers=2, layer_psnrs=[30, 40]),
+    dict(ht=True, irreversible=True, num_layers=2, layer_rates=[20, 1]),
+], ids=["97_rates", "53_0x3f_rates", "97_psnrs", "ht_rates"])
+def test_rate_control_on_card_equals_plain_path(cuda, kw):
+    """compress with layers and targets on the card: the plain path's
+    bytes, through K-p (Part-1) or K-e's energy (HT) and K-q; and the
+    layer-limited decodes equal."""
+    rng = np.random.default_rng(8)
+    arr = np.clip(rng.normal(128, 40, (40, 48, 3)), 0, 255).astype(np.int32)
+    params = dict(num_resolutions=3, cblk_width=16, cblk_height=16, **kw)
+    gt.reset_launch_counts()
+    on_card = gt.compress(gt.Image.from_array(arr), gt.CompressParams(**params))
+    counts = gt.launch_counts()
+    assert counts["hull_slopes"] == 1
+    assert counts["ht_cleanup_enc" if kw.get("ht") else "ebcot_pass_dist"] == 1
+    assert on_card == gt.compress(gt.Image.from_array(arr), gt.CompressParams(**params),
+                                  device="cpu")
+    for k in (0, 1):
+        a = gt.decompress(on_card, gt.DecompressParams(max_layers=k))
+        b = gt.decompress(on_card, gt.DecompressParams(max_layers=k), device="cpu")
+        for x, y in zip(a.components, b.components):
+            np.testing.assert_array_equal(x.data, y.data)

@@ -2,9 +2,11 @@
 
 (a) The plain symbol scan's records against the records of the Pallas
     kernel ``_build_kernel_wide`` run in interpret mode, byte for byte.
-(b) ``encode_cblks`` (plain scan + plain MQ packer) against
-    ``ebcot_np.encode_cblks``: segment bytes, lengths and pass rates exact,
-    pass distortions to rel 1e-12 (float64 sums taken in another order).
+(b) ``encode_cblks`` (plain scan + plain MQ packer + plain pass
+    distortions) against ``ebcot_np.encode_cblks`` and grok_tpu's default
+    native coder: segment bytes, lengths, pass rates and the float64 pass
+    distortions exact (PCRD compares slopes, so a last-bit difference could
+    move a layer boundary; the plain sums run in the coders' scan order).
 """
 
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from grok_tpu.t1 import ebcot_np, ebcot_pallas
+from grok_tpu.t1 import native as ref_native
 from grok_tpu_torch.t1 import ebcot_cuda
 from grok_tpu_torch.t1.ebcot import ctx_table, lane_numbps
 from grok_tpu_torch.t1.mq import mq_table
@@ -55,8 +58,11 @@ def test_symbol_records_match_pallas_interpret(monkeypatch, seed, shape, lo, hei
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-def _compare_encode(coeffs, heights, widths, orients, styles=None):
-    ref = ebcot_np.encode_cblks(coeffs, heights, widths, orients, styles=styles)
+def _compare_encode(coeffs, heights, widths, orients, styles=None, native=False):
+    if native:
+        ref = ref_native.encode_cblks(coeffs, heights, widths, orients, styles=styles)
+    else:
+        ref = ebcot_np.encode_cblks(coeffs, heights, widths, orients, styles=styles)
     got = ebcot_cuda.encode_cblks(torch.from_numpy(coeffs.astype(np.int32)),
                                   heights, widths, orients, styles=styles)
     np.testing.assert_array_equal(got.lengths.numpy(), ref.lengths)
@@ -68,7 +74,7 @@ def _compare_encode(coeffs, heights, widths, orients, styles=None):
     buf, off = got.raw_data
     assert off == 1 and torch.equal(buf[:, 1:], got.data)
     np.testing.assert_array_equal(got.pass_rates.numpy(), ref.pass_rates)
-    np.testing.assert_allclose(got.pass_dist.numpy(), ref.pass_dist, rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(got.pass_dist.numpy(), ref.pass_dist)
 
 
 @pytest.mark.parametrize("style", [0x00, 0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x3F, 0x05])
@@ -115,7 +121,34 @@ def test_plain_stages_in_record_layout_match_ebcot_np(style):
         ln = int(ref.lengths[i])
         assert bytes(buf[i, 1:1 + ln].numpy()) == bytes(ref.data[i, :ln]), f"lane {i}"
     np.testing.assert_array_equal(rates.numpy(), ref.pass_rates)
-    np.testing.assert_allclose(dist.numpy(), ref.pass_dist, rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(dist.numpy(), ref.pass_dist)
+    # the wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        ebcot_cuda.ebcot_pass_dist(sym, c, lanes[0].contiguous(), pmax).numpy(), ref.pass_dist)
+
+
+@pytest.mark.parametrize("style", [0x00, 0x01, 0x04, 0x3F])
+def test_pass_dist_equals_native_coder(style):
+    """The default coder of grok_tpu (native/t1_coder.cpp), which rate
+    control reads: distortions equal to the last bit, every style."""
+    rng = np.random.default_rng(70 + style)
+    coeffs = rng.integers(-2000, 2000, size=(4, 12, 8)).astype(np.int64)
+    coeffs[1] //= 30
+    coeffs[2, 7:] = 0
+    _compare_encode(coeffs, np.array([12, 9, 12, 5]), np.array([8, 8, 6, 7]),
+                    np.array([0, 1, 2, 3]), np.full(4, style, dtype=np.int64), native=True)
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["ebcot_np", "native"])
+def test_pass_dist_deep_planes_every_style(native):
+    """Magnitudes up to 1 << 17 (18 planes, 52 passes) under every style
+    bit: the decreases reach 2^36 and their sums stay exact."""
+    rng = np.random.default_rng(17)
+    coeffs = rng.integers(-(1 << 17), 1 << 17, size=(3, 8, 8)).astype(np.int64)
+    coeffs[0, 0, 0] = -(1 << 17)
+    coeffs[2] >>= 9
+    _compare_encode(coeffs, np.array([8, 7, 8]), np.array([8, 8, 5]), np.array([0, 3, 1]),
+                    np.full(3, 0x3F, dtype=np.int64), native=native)
 
 
 def test_encode_cblks_all_zero_batch():

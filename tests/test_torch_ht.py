@@ -85,7 +85,8 @@ def test_plain_encode_equals_reference(name):
     np.testing.assert_array_equal(res.numbps.numpy(), ref.numbps)
     np.testing.assert_array_equal(res.npasses.numpy(), ref.npasses)
     np.testing.assert_array_equal(res.pass_rates.numpy(), ref.pass_rates)
-    assert res.pass_dist is None  # only a layer allocation would read it
+    # each codeblock's energy, what PCRD reads, summed as the reference's coder sums it
+    np.testing.assert_array_equal(res.pass_dist.numpy(), ref.pass_dist)
 
 
 def test_encode_cblks_equals_ht_jax_batch():
