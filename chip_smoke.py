@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive grok_tpu_torch on one CUDA card: the Part-1 and HTJ2K encode and
 decode, lossless (5/3 + RCT) and lossy (9/7 + ICT), with quality layers
-and PCRD rate control.
+and PCRD rate control, the Part-2 array MCT and component ROI (RGN).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -18,11 +18,14 @@ line):
               every band type (plain versions on the CPU; K-e, K-f and K-i
               timed on the whole batch; K-i's sample once whole and once cut
               after a seeded pass, and the whole batch decoded back to K-c's
-              input); K-e's block energy on the sample (plain on the CPU)
-              and the whole batch (plain on the card); K-p and K-q on the
-              sample (plain on the CPU) and on the whole 4K lossy97 batch
-              (K-p's plain on the card, K-q's on the CPU); all compared
-              exactly, the float64 outputs on their bits
+              input; the cut sample with seeded ROI shifts in the style bits
+              of every other codeblock); K-e's block energy on the sample
+              (plain on the CPU) and the whole batch (plain on the card); K-p
+              and K-q on the sample (plain on the CPU) and on the whole 4K
+              lossy97 batch (K-p's plain on the card, K-q's on the CPU); K-r
+              and K-s (the Part-2 MCT with M3 and back) and K-t (a packed
+              plane shifted up and down) on the whole image, plain on the
+              card; all compared exactly, the float outputs on their bits
   5. slice    256x256x3 compress on the card, byte-identical to the plain
               path (device="cpu") and to grok_tpu's stream (REF_SHA256);
      slice_p1dec  the Part-1 stream decoded on the card, equal to the plain
@@ -37,6 +40,13 @@ line):
               with grok_tpu's length and SHA-256, its card decodes with
               max_layers 0 and 1 with grok_tpu's digests; K-p, K-e and K-q
               must launch
+     slice_mct_roi  the MCT_ROI_CASES (the Part-2 MCT, 9/7 Part-1 and HT,
+              three and four components; ROI on 5/3 HT and on 9/7 Part-1
+              with layers) on the card: each stream with grok_tpu's length
+              and SHA-256, its decodes with max_layers 0 and 1 with
+              grok_tpu's digests; a PLAIN_CUT crop of each image coded and
+              decoded on the card and by the plain path, identical; K-r,
+              K-s and both entries of K-t must launch
   6. e2e      3840x2160x3 lossless53 (CompressParams(num_resolutions=6))
               compressed three times like three requests: per-stage ms,
               end-to-end ms, MP/s, bytes; each stream must have grok_tpu's
@@ -59,6 +69,14 @@ line):
               pcrd and the number of simulations) and three decodes: each
               stream with grok_tpu's length and SHA-256, each decode with
               its digest; the 9/7 kernels, K-p and K-q must launch
+     e2e_mct  PMCT (the Part-2 MCT with M3, 9/7 Part-1) at 3840x2160x3,
+              three encodes and three decodes, held to REF_SHA256 and
+              REF_MD5; K-r and K-s (and the 9/7 kernels) must launch
+     e2e_roi  PROI (ROI maxshift 4 on component 0, 5/3 Part-1) likewise,
+              each decode equal to the input; K-t's up entry and K-i must
+              launch
+     e2e_roi_ht  PROI_HT (the same on HTJ2K) likewise; both entries of K-t
+              must launch (the down entry runs on HT decodes only)
   9. truncated  a 40x40x3 stream with 24x24 tiles, Part-1 and HT, cut to
               10-99% of its length: the card's planes equal the plain path's
  10. corpus   every .j2k of tests/corpus/streams decoded on the card with
@@ -111,6 +129,23 @@ REF_SHA256 = {
     "rc_e 256x256x3": (24396, "a20ec85d1186d468f4f5caccf99902fcb6906917060c6f97d4ca432fd48635d5"),
     "1bpp 2160x3840x3": (3092523,
                          "10640d5fcb4dacbff02b52b4f079f8dca75f3e2fa7fd96bedce9bc2e8f327581"),
+    # under "<case> 256x256x<nc>", with MCT_ROI_CASES[case] on natural_image
+    # of nc components; under "mct ...", "roi ..." and "roi_ht ..." at 4K,
+    # PMCT, PROI and PROI_HT
+    "mct 256x256x3": (85326, "7469b049081f67c6e317f9bef20e71ecf824eac73decb5ee2ffaa2736fd53966"),
+    "mct_ht 256x256x3": (92297,
+                         "b8194d3547954386cc7e1da93dc122928b24f2dc75e6cf7b7639f9f04aa19861"),
+    "mct4 256x256x4": (113920,
+                       "576c4353dac4ba2a67a562dc6588e464574899acdbfe3f61273899021d217391"),
+    "roi_ht 256x256x3": (188299,
+                         "d732c3ebf81aba7b73fb0ec76a8e374a049598f29ad41489da6ee53fde7f15fa"),
+    "roi97 256x256x3": (24548, "b55e6aa3d963a4296b22453bd18533b361e55a968dd753c52e5b3c25fa2b1308"),
+    "mct 2160x3840x3": (10714753,
+                        "9020a473ae92ab134fe369e64f6304ee148aedb3973535aa25532ad339acbf90"),
+    "roi 2160x3840x3": (18551900,
+                        "9ad1fc85850d30df105d0484c6b32334c357afc33a3c1f6d10b4b5928e1a3b38"),
+    "roi_ht 2160x3840x3": (23759587,
+                           "1fb0ed0a5dd90542253c19e7e77b67bc8fdc2257bb8ab0ec76aeda3d03348455"),
 }
 PART1_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ebcot_symbols", "mq_pack")
 PART1_DEC_KERNELS = ("ebcot_decode", "dwt53_inv_level", "rct_inv_dc_clip")
@@ -134,6 +169,31 @@ RC_CASES = {
 }
 RC_KERNELS = ("ebcot_pass_dist", "hull_slopes")
 K1BPP_KERNELS = K97_KERNELS + RC_KERNELS
+# the Part-2 MCT: tests/test_device_pipeline.py:62's matrix, and a 4 x 4 one
+M3 = [[0.6, 0.3, 0.1], [-0.3, 0.5, -0.2], [0.1, -0.4, 0.5]]
+M4 = [[0.5, 0.2, 0.2, 0.1], [-0.2, 0.5, -0.2, -0.1], [0.1, -0.3, 0.4, -0.2],
+      [0.1, 0.1, -0.2, 0.6]]
+# slice_mct_roi: (components, parameters) of the Part-2 MCT (9/7 Part-1 and
+# HT, three and four components) and of component ROI (5/3 HT; 9/7 Part-1
+# with three rate-controlled layers, decoded at max_layers 0 and 1)
+MCT_ROI_CASES = {
+    "mct": (3, dict(num_resolutions=6, mct_matrix=M3)),
+    "mct_ht": (3, dict(num_resolutions=6, mct_matrix=M3, ht=True)),
+    "mct4": (4, dict(num_resolutions=6, mct_matrix=M4)),
+    "roi_ht": (3, dict(num_resolutions=6, roi_comp=0, roi_shift=4, ht=True)),
+    "roi97": (3, dict(num_resolutions=6, roi_comp=1, roi_shift=6, irreversible=True,
+                      num_layers=3, layer_rates=[32, 16, 8])),
+}
+# the cut of slice_mct_roi's images that the plain path codes on the CPU
+PLAIN_CUT = (48, 40)
+MCT_ROI_KERNELS = ("dc_mct_fwd", "mct_inv_round_clip", "roi_up", "roi_down")
+PMCT = dict(num_resolutions=6, mct_matrix=M3)
+PROI = dict(num_resolutions=6, roi_comp=0, roi_shift=4)
+PROI_HT = dict(PROI, ht=True)
+MCT_KERNELS = ("dc_mct_fwd", "dwt97_fwd_level", "quant_deadzone", "ebcot_symbols", "mq_pack",
+               "ebcot_decode", "dequant_midbin", "dwt97_inv_level", "mct_inv_round_clip")
+ROI_KERNELS = PART1_KERNELS + ("roi_up",) + PART1_DEC_KERNELS
+ROI_HT_KERNELS = HT_KERNELS + ("roi_up", "roi_down")
 # md5 of grok_tpu.decompress's planes (golden_md5) of the "97 ...", "1bpp
 # ..." and "<case> ..." streams above, the last decoded with max_layers 0
 # and 1 ("... L0", "... L1"); tests/test_torch_chip_digest.py holds the
@@ -152,6 +212,18 @@ REF_MD5 = {
     "rc_d 256x256x3 L1": "cf58f7859d31fe18fa92822c197f6616",
     "rc_e 256x256x3 L0": "fcbb2f16079d413e4813bee27305ed6d",
     "rc_e 256x256x3 L1": "394c441df18005c5489b4a3da42eae92",
+    # the MCT_ROI_CASES streams with max_layers 0 and 1, and PMCT's at 4K
+    "mct 256x256x3 L0": "1da735b7d6ce941bcec746267947cc79",
+    "mct 256x256x3 L1": "1da735b7d6ce941bcec746267947cc79",
+    "mct_ht 256x256x3 L0": "1da735b7d6ce941bcec746267947cc79",
+    "mct_ht 256x256x3 L1": "1da735b7d6ce941bcec746267947cc79",
+    "mct4 256x256x4 L0": "724ccedecc9ed0c5f74b58396035fa66",
+    "mct4 256x256x4 L1": "724ccedecc9ed0c5f74b58396035fa66",
+    "roi_ht 256x256x3 L0": "e0eaa24105ab6f58a18e47eb83ab5d61",
+    "roi_ht 256x256x3 L1": "e0eaa24105ab6f58a18e47eb83ab5d61",
+    "roi97 256x256x3 L0": "52c45ec13e054cc9e512d0b6675218f0",
+    "roi97 256x256x3 L1": "040097d724f7a7c7df08cf0ac5aebf4f",
+    "mct 2160x3840x3": "c8c9387318a387481a3bf328ccd99f61",
 }
 # golden_md5 of grok_tpu.decompress's planes for every corpus stream the
 # port decodes, with the manifest's decode parameters (anchored by
@@ -234,6 +306,11 @@ CORPUS_REF_MD5 = {
     "res7.j2k": "9846cbdc31c99cbd69833ac0a509266d",
     "res8_big.j2k": "9673caeb964c206dc8a050649b5fa8dd",
     "reset.j2k": "83a77dad4db71756b1ab67bd4f74e716",
+    "roi_both_comps.j2k": "926e74fdfd454de633f9b800d18718c2",
+    "roi_c0_u4.j2k": "f7a6f2cb3b98fa405b5575e35373cbd1",
+    "roi_c1_u6_tiles.j2k": "3bcfd0a8265979e88b9b6f6f564af02d",
+    "roi_gray16.j2k": "ec3246f22bfc32636b1c12e7385ce9c6",
+    "roi_lossy.j2k": "8450a0c1537145d2e752e9b25d7e0fdb",
     "rlcp.j2k": "83a77dad4db71756b1ab67bd4f74e716",
     "rlcp_bypass_layers.j2k": "4d12fa2ef11fd847b82f10e466a76fcb",
     "rlcp_layers_l1.j2k": "84162286d8ea83dff82ddfa69da69624",
@@ -574,6 +651,11 @@ def main() -> int:
         s_lanes, s_data, s_starts = dec_inputs(
             torch, plan, numbps, npasses, seg_len, buf, idx,
             torch.from_numpy(keep).to(dev), torch.from_numpy(lens).to(dev))
+        if label == "cut":
+            # every other cut codeblock decoded with a seeded ROI shift in
+            # style bits 8-15: K-i's scaled-domain writeout on truncated data
+            s_lanes[5, ::2] |= torch.from_numpy(rng.integers(1, 7, (len(s_np) + 1) // 2)
+                                                .astype(np.int32) << 8).to(dev)
         s_seg = torch.zeros((len(s_np), 1), dtype=torch.int32, device=dev)
         k_dec = ec.ebcot_decode(s_data, s_starts, s_lanes, s_seg, tabs["ctx"], tabs["mq"],
                                 bh, bw)
@@ -839,6 +921,61 @@ def main() -> int:
         shape=f"3 x {H}x{W} float32 -> int32", chain_max_err_vs_input=worst)
     del f_in, kern, plain, scratch, q_k, q_p, d_k, d_p, o_k, o_p
 
+    # K-r and K-s on the whole image: the Part-2 MCT with M3, then its
+    # inverse with the stream's offsets, against their plain versions on
+    # the card (the float32 bits); K-t on the first component's packed 5/3
+    # plane, up and back down
+    m3 = np.asarray(M3, dtype=np.float32)
+    m3_inv = np.linalg.inv(np.asarray(M3, dtype=np.float64)).astype(np.float32)
+    r_k = tr.dc_mct_fwd(planes, dcs, m3)
+    m3_t = torch.from_numpy(m3).to(dev)
+    flat_t = torch.stack([p - 128 for p in planes]).reshape(NC, -1).float()
+    stats["dc_mct_fwd"] = dict(
+        max_abs_err=err_of(r_k, tr.dc_mct_fwd_plain(planes, dcs, m3)),
+        ms=cuda_ms(torch, lambda: tr.dc_mct_fwd(planes, dcs, m3)),
+        plain_ms=cuda_ms(torch, lambda: tr.dc_mct_fwd_plain(planes, dcs, m3), reps=1),
+        bytes=6 * 4 * npx, ops=(2 * NC * NC + NC) * npx, op_rate=FP32_OPS_PER_S,
+        library_ms=None, torch_matmul_ms=cuda_ms(torch, lambda: torch.matmul(m3_t, flat_t)),
+        torch_matmul_note="torch.matmul of the matrix and the DC-shifted planes stacked as "
+                          "float32: not the same function (it rounds differently, with no "
+                          "fused chain in k order), so no library_ms",
+        shape=f"{NC} x {H}x{W} int32 -> float32, {NC}x{NC} matrix")
+    del m3_t, flat_t
+    offs = [128.0] * NC
+    s_k = tr.mct_inv_round_clip(r_k, m3_inv, offs, rng8)
+    worst = max(int((o.cpu() - torch.from_numpy(np.ascontiguousarray(arr[:, :, c]))).abs().max())
+                for c, o in enumerate(s_k))
+    stats["mct_inv_round_clip"] = dict(
+        max_abs_err=err_of(s_k, tr.mct_inv_round_clip_plain(r_k, m3_inv, offs, rng8)),
+        ms=cuda_ms(torch, lambda: tr.mct_inv_round_clip(r_k, m3_inv, offs, rng8)),
+        plain_ms=cuda_ms(torch, lambda: tr.mct_inv_round_clip_plain(r_k, m3_inv, offs, rng8),
+                         reps=1),
+        bytes=6 * 4 * npx, ops=(2 * NC * NC + 2 * NC) * npx, op_rate=FP32_OPS_PER_S,
+        library_ms=None, shape=f"{NC} x {H}x{W} float32 -> int32, {NC}x{NC} matrix",
+        chain_max_err_vs_input=worst)
+    if worst > 1:
+        raise AssertionError(f"the Part-2 MCT and its inverse are {worst} off the image")
+    del r_k, s_k
+    roi_in = coeffs[0].clone()
+    up_k, up_p = tr.roi_up(roi_in.clone(), 4), tr.roi_up_plain(roi_in.clone(), 4)
+    down_k, down_p = tr.roi_down(up_k.clone(), 4), tr.roi_down_plain(up_k.clone(), 4)
+    if not torch.equal(down_k, roi_in):
+        raise AssertionError("roi_down of roi_up is not the plane")
+    roi_scratch = roi_in.clone()
+    # the up shift is one PyTorch call, bitwise_left_shift_; the down shift
+    # (a shift only where the magnitude reaches 1 << s, the sign kept) is none
+    for name, k_out, p_out, fn, pfn, lib in (
+            ("roi_up", up_k, up_p, tr.roi_up, tr.roi_up_plain,
+             lambda: roi_scratch.bitwise_left_shift_(4)),
+            ("roi_down", down_k, down_p, tr.roi_down, tr.roi_down_plain, None)):
+        stats[name] = dict(
+            max_abs_err=int((k_out - p_out).abs().max()),
+            ms=cuda_ms(torch, lambda: fn(roi_scratch, 4)),
+            plain_ms=cuda_ms(torch, lambda: pfn(roi_scratch, 4)),
+            bytes=8 * npx, ops=3 * npx, library_ms=None if lib is None else cuda_ms(torch, lib),
+            shape=f"{H}x{W} int32 packed 5/3 plane, shift 4, in place")
+    del roi_in, up_k, up_p, down_k, down_p, roi_scratch
+
     for name, s in stats.items():
         bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = s["ops"] / s.pop("op_rate", INT32_OPS_PER_S) * 1e3
@@ -945,6 +1082,45 @@ def main() -> int:
         raise AssertionError(f"a kernel of the rate-control path never launched: {rc_counts}")
 
     lap("slices")
+
+    # the Part-2 MCT and component ROI at 256x256: the card's streams and
+    # decodes (max_layers 0 and 1) against grok_tpu's digests; then a
+    # PLAIN_CUT crop of each image through the card and the plain path
+    gt.reset_launch_counts()
+    ch, cw = PLAIN_CUT
+    for name, (nc, kw) in MCT_ROI_CASES.items():
+        img_arr = natural_image(256, 256, nc)
+        key = f"{name} 256x256x{nc}"
+        t0 = time.perf_counter()
+        out = gt.compress(gt.Image.from_array(img_arr), gt.CompressParams(**kw))
+        t1 = time.perf_counter()
+        sha, ref_ok = digest_ok(out, key)
+        md5s = [golden_md5([c.data for c in gt.decompress(
+            out, gt.DecompressParams(max_layers=k)).components]) for k in (0, 1)]
+        t2 = time.perf_counter()
+        dec_ok = md5s == [REF_MD5[f"{key} L{k}"] for k in (0, 1)]
+        crop = gt.Image.from_array(np.ascontiguousarray(img_arr[:ch, :cw]))
+        c_gpu = gt.compress(crop, gt.CompressParams(**kw))
+        c_cpu = gt.compress(crop, gt.CompressParams(**kw), device="cpu")
+        crop_dec = all(np.array_equal(a.data, b.data) for k in (0, 1) for a, b in zip(
+            gt.decompress(c_gpu, gt.DecompressParams(max_layers=k)).components,
+            gt.decompress(c_gpu, gt.DecompressParams(max_layers=k), device="cpu").components))
+        t3 = time.perf_counter()
+        emit({"phase": "slice_mct_roi", "case": name, "params": kw, "image": f"256x256x{nc}",
+              "bytes": len(out), "sha256": sha, "reference_digest": ref_ok,
+              "decode_md5_max_layers_0_1": md5s, "decode_reference_digests": dec_ok,
+              "crop": f"{ch}x{cw}x{nc}", "crop_identical": c_gpu == c_cpu,
+              "crop_decode_equal": crop_dec, "gpu_enc_ms": (t1 - t0) * 1e3,
+              "gpu_dec_ms": (t2 - t1) * 1e3, "crop_ms": (t3 - t2) * 1e3})
+        if not (ref_ok and dec_ok and c_gpu == c_cpu and crop_dec):
+            raise AssertionError(f"slice_mct_roi {name}: a stream or a decode is not "
+                                 "grok_tpu's, or the card differs from the plain path")
+    mr_counts = gt.launch_counts()
+    emit({"phase": "slice_mct_roi_launches", "launches": mr_counts})
+    if any(mr_counts[k] <= 0 for k in MCT_ROI_KERNELS):
+        raise AssertionError(f"a kernel of the MCT and ROI slice never launched: {mr_counts}")
+
+    lap("slice_mct_roi")
 
     # ---- 6. full size, three requests
     gt.reset_launch_counts()
@@ -1135,6 +1311,63 @@ def main() -> int:
     del streams
 
     lap("e2e_1bpp")
+
+    # ---- 8c. the Part-2 MCT (PMCT, 9/7 Part-1) and component ROI (PROI,
+    # 5/3 Part-1 and HT) at full size: three encodes and three decodes each
+    def e2e_phase(phase, kw, ref_key, kernel_names):
+        gt.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        streams = []
+        for i in range(3):
+            stage = {}
+            img = gt.Image.from_array(arr)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gt.compress(img, gt.CompressParams(**kw), stage_ms=stage)
+            torch.cuda.synchronize()
+            e2e = (time.perf_counter() - t0) * 1e3
+            sha, ref_ok = digest_ok(out, ref_key)
+            emit({"phase": phase, "op": "encode", "request": i, "e2e_ms": e2e,
+                  "mp_per_s": W * H / 1e6 / (e2e / 1e3), "bytes": len(out), "sha256": sha,
+                  "reference_digest": ref_ok, "stage_ms": stage})
+            if not ref_ok:
+                raise AssertionError(f"{phase} request {i}: the stream is not grok_tpu's")
+            streams.append(out)
+        for i, stream in enumerate(streams):
+            stage = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = gt.decompress(stream, stage_ms=stage)
+            torch.cuda.synchronize()
+            e2e = (time.perf_counter() - t0) * 1e3
+            planes_out = [c.data for c in back.components]
+            if ref_key in REF_MD5:
+                md5 = golden_md5(planes_out)
+                ok, check = md5 == REF_MD5[ref_key], {"decode_md5": md5}
+            else:
+                ok = all(np.array_equal(a, arr[:, :, k]) for k, a in enumerate(planes_out))
+                check = {"exact": ok}
+            emit({"phase": phase, "op": "decode", "request": i, "e2e_ms": e2e,
+                  "mp_per_s": W * H / 1e6 / (e2e / 1e3), **check, "stage_ms": stage})
+            if not ok:
+                raise AssertionError(f"{phase} decode {i}: not grok_tpu's decode")
+        got = gt.launch_counts()
+        emit({"phase": f"{phase}_launches", "image": f"{W}x{H}x{NC}", "params": kw,
+              "requests": 3, "launches": got,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if any(got[k] <= 0 for k in kernel_names):
+            raise AssertionError(f"a kernel of the {phase} path never launched: {got}")
+        return got
+
+    m_counts = e2e_phase("e2e_mct", PMCT, f"mct {H}x{W}x{NC}", MCT_KERNELS)
+    counts["dc_mct_fwd"] = m_counts["dc_mct_fwd"]
+    counts["mct_inv_round_clip"] = m_counts["mct_inv_round_clip"]
+    lap("e2e_mct")
+    counts["roi_up"] = e2e_phase("e2e_roi", PROI, f"roi {H}x{W}x{NC}", ROI_KERNELS)["roi_up"]
+    lap("e2e_roi")
+    counts["roi_down"] = e2e_phase("e2e_roi_ht", PROI_HT, f"roi_ht {H}x{W}x{NC}",
+                                   ROI_HT_KERNELS)["roi_down"]
+    lap("e2e_roi_ht")
 
     # ---- 9. truncated streams: the card's planes equal the plain path's
     cuts = cut_streams(gt)

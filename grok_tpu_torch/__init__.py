@@ -1,6 +1,6 @@
 """grok_tpu_torch — the PyTorch / CUDA port of grok_tpu for NVIDIA Hopper.
 
-Five slices are ported. The Part-1 lossless encode: DC shift + RCT + 5/3
+Six slices are ported. The Part-1 lossless encode: DC shift + RCT + 5/3
 DWT, codeblock gather, EBCOT context modelling and MQ coding. Its decode:
 EBCOT/MQ decoding of every codeblock style, codeblock scatter, the inverse
 5/3 + RCT, with ``DecompressParams(max_layers=k)`` for a layer-limited
@@ -9,7 +9,9 @@ transform and gather, the HT cleanup coder and decoder. The 9/7 + ICT
 encode and decode (``irreversible=True``). Quality layers with PCRD rate
 control (``num_layers``, ``layer_rates``, ``layer_psnrs``): per-pass
 distortions and hull slopes on the device, the threshold search and its
-packet simulations on the host. Device work runs in hand-written CUDA
+packet simulations on the host. The Part-2 array MCT (``mct_matrix``,
+on the 9/7 path) and component ROI (``roi_comp``/``roi_shift``), encode
+and decode. Device work runs in hand-written CUDA
 kernels (``csrc/``); T2 and markers run on the host. The package imports
 torch and numpy only; grok_tpu is its reference in the tests, never a
 dependency.

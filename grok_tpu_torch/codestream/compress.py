@@ -4,13 +4,17 @@ encode_tile_to_blob, compress) for the ported slices: Part-1 (MQ) and
 HTJ2K cleanup-only (``ht=True``), reversible 5/3 + RCT or irreversible
 9/7 + ICT (``irreversible=True``, quantization style 2 or 1), any number
 of quality layers with rate (``layer_rates``) or quality
-(``layer_psnrs``) targets, allocated per tile by PCRD.
+(``layer_psnrs``) targets, allocated per tile by PCRD, the Part-2 array
+MCT (``mct_matrix``: 9/7, Rsiz 0x8100, MCT/MCC/MCO markers) and the ROI
+maxshift of one component (``roi_comp``/``roi_shift``: RGN).
 
 Host-side orchestration: the main header, one TileProcessor per tile
 (each drives the device work of its tile), tiles one after another.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from ..core.image import Image
 from ..core.params import CBLK_HT, CompressParams, QuantStyle
 from ..core.rect import ceil_div
 from ..core.timing import StageClock
+from ..ops.transform import MCT_MAX_COMPS, ROI_MAX_SHIFT
 from ..tile.tile_processor import TileProcessor
 from . import markers as mk
 from .quantizer import compute_signalled_quant
@@ -27,12 +32,15 @@ from .structs import Siz, SizComponent, Tcp, TccpStyle
 
 
 def check_supported(params: CompressParams) -> None:
-    """Refuse every option outside the ported slices by name."""
+    """Refuse every option outside the ported slices by name. ``custom_mct``
+    is carried and never read, as in grok_tpu (its core/params.py:116);
+    ``roi_shift`` acts only with ``roi_comp`` >= 0 and above 0."""
+    roi = params.roi_comp >= 0 and params.roi_shift > 0
+    n_mct = 0 if params.mct_matrix is None else len(params.mct_matrix)
     off = {
         "ht_refine (HT refinement passes)": params.ht and params.ht_refine,
-        "mct_matrix": params.mct_matrix is not None,
-        "custom_mct": params.custom_mct is not None,
-        "roi": params.roi_comp >= 0 or params.roi_shift != 0,
+        f"roi_shift above {ROI_MAX_SHIFT}": roi and params.roi_shift > ROI_MAX_SHIFT,
+        f"mct_matrix of more than {MCT_MAX_COMPS} components": n_mct > MCT_MAX_COMPS,
         "precinct_sizes": params.precinct_sizes is not None,
         "progression_changes (POC)": bool(params.progression_changes),
         "tp_divider": params.tp_divider is not None,
@@ -84,7 +92,16 @@ def build_tcp(image: Image, params: CompressParams) -> Tcp:
     tcp.num_layers = params.num_layers
     cs = image.components
     equal = len(cs) >= 3 and all((c.dx, c.dy) == (cs[0].dx, cs[0].dy) for c in cs[:3])
-    tcp.mct = 1 if params.resolved_mct(image.num_comps, equal) else 0
+    if params.mct_matrix is not None:
+        # the Part-2 array MCT (grok_tpu/codestream/compress.py:61-71): the
+        # stream carries the inverse of the user's matrix and each
+        # component's DC level as its offset
+        tcp.mct = 2
+        tcp.mct_enc_matrix = np.asarray(params.mct_matrix, dtype=np.float64)
+        tcp.mct_dec_matrix = np.linalg.inv(tcp.mct_enc_matrix)
+        tcp.mct_offsets = [0.0 if c.signed else float(1 << (c.prec - 1)) for c in cs]
+    else:
+        tcp.mct = 1 if params.resolved_mct(image.num_comps, equal) else 0
     qs = params.quant_style
     if qs is None:
         qs = QuantStyle.SCALAR_EXPOUNDED if params.irreversible else QuantStyle.NO_QUANT
@@ -101,13 +118,16 @@ def build_tcp(image: Image, params: CompressParams) -> Tcp:
         prec = image.components[c].prec
         if tcp.mct == 1 and not params.irreversible and c in (1, 2):
             prec += 1  # RCT expands the chroma range by one bit; ICT does not
+        if params.roi_comp == c and params.roi_shift > 0:
+            t.roi_shift = params.roi_shift  # Mb grows by the shift (E.1.1)
         compute_signalled_quant(t, prec)
         tcp.tccps.append(t)
     return tcp
 
 
 def write_main_header(siz: Siz, tcp: Tcp, params: CompressParams) -> bytearray:
-    """Main header SOC, SIZ, CAP (HT), COD, QCD, QCCs, COM."""
+    """Main header SOC, SIZ, CAP (HT), COD, QCD, QCCs, MCT/MCC/MCO (Part-2
+    MCT), RGN (ROI), COM."""
     out = bytearray()
     out += mk._u16(mk.SOC)
     out += mk.write_siz(siz)
@@ -131,6 +151,11 @@ def write_main_header(siz: Siz, tcp: Tcp, params: CompressParams) -> bytearray:
         t = tcp.tccps[c]
         if t.step_exps != base.step_exps or t.step_mants != base.step_mants:
             out += mk.write_qcc(tcp, c, siz.num_comps)
+    if tcp.mct == 2:
+        out += mk.write_mct_markers(tcp.mct_dec_matrix, tcp.mct_offsets)
+    if params.roi_comp >= 0 and params.roi_shift > 0:
+        # written for roi_comp past the last component too, as grok_tpu does
+        out += mk.write_rgn(params.roi_comp, params.roi_shift, siz.num_comps)
     if params.comment:
         out += mk.write_com(params.comment.encode())
     return out
@@ -179,6 +204,10 @@ def compress(image: Image, params: CompressParams | None = None, device=None,
     with the count of rate control's packet simulations under
     ``pcrd_simulations``."""
     params = params or CompressParams()
+    if params.mct_matrix is not None:
+        # the Part-2 MCT takes the irreversible path (grok_tpu sets the
+        # caller's field; the port leaves the caller's object as it is)
+        params = dataclasses.replace(params, irreversible=True)
     params.validate()
     check_supported(params)
     dev = resolve_device(device)
@@ -190,6 +219,8 @@ def compress(image: Image, params: CompressParams | None = None, device=None,
     tcp = build_tcp(image, params)
     if params.ht:
         siz.rsiz |= 0x4000  # Part-15 capabilities in Rsiz (see CAP)
+    if tcp.mct == 2:
+        siz.rsiz |= 0x8100  # Part 2 with the array MCT extension
     for ti in range(siz.num_tiles):
         if siz.tile_bounds(ti).empty():
             raise ParameterError(f"tile {ti} empty")

@@ -1,5 +1,7 @@
 """Whole-image codestream decoder for the ported slices, Part-1 (MQ) and
-HTJ2K, reversible 5/3 or irreversible 9/7; counterpart of
+HTJ2K, reversible 5/3 or irreversible 9/7, with the Part-2 array MCT (MCT
+markers; MCC and MCO are not read, as in the reference) and ROI (RGN in
+main and tile-part headers); counterpart of
 grok_tpu/codestream/decompress.py (Decoder: main header, tile-part walk,
 _paste_tile :366-399; decompress :403).
 
@@ -7,10 +9,11 @@ Host-side orchestration: the main header, the tile-part index and each
 tile-part header are parsed here; one TileProcessor per tile drives its
 device work, tiles one after another. ``DecompressParams.max_layers``
 limits the decode to the first quality layers. Streams outside the slices
-(precincts, SOP/EPH, ROI, POC, packed headers, length markers, Part-2 MCT,
-mixed HT and Part-1 codeblocks) and the other non-default DecompressParams
-are refused by name. A corrupt or truncated tile decodes as far as its
-intact packets go, or as an empty tile.
+(precincts, SOP/EPH, POC, packed headers, length markers, mixed HT and
+Part-1 codeblocks, a Part-2 MCT without its matrix or on 5/3) and the
+other non-default DecompressParams are refused by name. A corrupt or
+truncated tile decodes as far as its intact packets go, or as an empty
+tile.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..core.image import Component, Image
 from ..core.params import CBLK_HT, ColorSpace, DecompressParams
 from ..core.rect import ceil_div
 from ..core.timing import StageClock
+from ..ops.transform import ROI_MAX_SHIFT
 from ..tile.tile_processor import TileProcessor
 from . import markers as mk
 from .compress import resolve_device
@@ -51,7 +55,12 @@ def check_decodable(tcp: Tcp) -> None:
                                                  for t in tcp.tccps}) > 1),
         "precinct sizes": any(t.precinct_exps is not None for t in tcp.tccps),
         "SOP/EPH markers": bool(tcp.csty & 0x06),
-        f"MCT {tcp.mct}": tcp.mct not in (0, 1),
+        f"MCT {tcp.mct}": tcp.mct not in (0, 1, 2),
+        "MCT 2 with the 5/3 transform": tcp.mct == 2 and not tcp.tccps[0].irreversible,
+        "MCT 2 without an N x N decorrelation array": (tcp.mct == 2
+                                                       and tcp.mct_dec_matrix is None),
+        f"RGN shift above {ROI_MAX_SHIFT}": any(t.roi_shift > ROI_MAX_SHIFT
+                                                for t in tcp.tccps),
     }
     bad = [k for k, v in off.items() if v]
     if bad:

@@ -1,11 +1,14 @@
-"""J2K marker segments (T.800 Annex A; T.814 CAP); counterpart of
-grok_tpu/codestream/markers.py for SOC, SIZ, CAP, COD/COC, QCD/QCC, COM,
-SOT, SOD and EOC: the writers, and the readers of the main and tile-part
-headers. Markers outside the ported slices are refused by name."""
+"""J2K marker segments (T.800 Annex A; T.814 CAP; T.801 A.3.7-A.3.9 MCT,
+MCC and MCO); counterpart of grok_tpu/codestream/markers.py for SOC, SIZ,
+CAP, COD/COC, QCD/QCC, RGN, MCT/MCC/MCO, COM, SOT, SOD and EOC: the
+writers, and the readers of the main and tile-part headers. Markers
+outside the ported slices are refused by name."""
 
 from __future__ import annotations
 
 import struct
+
+import numpy as np
 
 from ..core.errors import CodestreamError, InvalidMarkerError, UnsupportedFeatureError
 from ..core.params import ProgressionOrder, QuantStyle
@@ -22,9 +25,13 @@ QCC = 0xFF5D
 COM = 0xFF64
 CAP = 0xFF50
 COC = 0xFF53
+RGN = 0xFF5E
+MCT = 0xFF74
+MCC = 0xFF75
+MCO = 0xFF77
 # markers the decoder refuses (outside the ported slices)
-REFUSED = {0xFF5F: "POC", 0xFF5E: "RGN", 0xFF60: "PPM", 0xFF61: "PPT", 0xFF58: "PLT",
-           0xFF57: "PLM", 0xFF55: "TLM", 0xFF74: "MCT", 0xFF75: "MCC", 0xFF77: "MCO"}
+REFUSED = {0xFF5F: "POC", 0xFF60: "PPM", 0xFF61: "PPT", 0xFF58: "PLT", 0xFF57: "PLM",
+           0xFF55: "TLM"}
 
 
 def _u8(b: int) -> bytes:
@@ -99,6 +106,39 @@ def write_qcd(tcp: Tcp) -> bytes:
 def write_qcc(tcp: Tcp, comp: int, num_comps: int) -> bytes:
     head = _u8(comp) if num_comps <= 256 else _u16(comp)
     return segment(QCC, head + _write_sqcd(tcp.tccps[comp]))
+
+
+def write_rgn(comp: int, shift: int, num_comps: int) -> bytes:
+    """RGN: the component, Srgn 0 (maxshift) and the shift."""
+    head = _u8(comp) if num_comps <= 256 else _u16(comp)
+    return segment(RGN, head + _u8(0) + _u8(shift))
+
+
+def write_mct_markers(dec_matrix, offsets) -> bytes:
+    """The Part-2 array MCT as grok_tpu writes it (markers.py:474-507): one
+    MCT of float32 elements with the [N, N] decoding matrix (index 1,
+    decorrelation), one with the N offsets (index 2), one MCC collection
+    (index 3, irreversible, array-based) over components 0..N-1, one MCO
+    ordering it."""
+    n = len(offsets)
+
+    def mct_record(index, array_type, values):
+        data = b"".join(struct.pack(">f", float(v)) for v in values)
+        imct = (index & 0xFF) | (array_type << 8) | (2 << 10)  # float32 elements
+        return segment(MCT, _u16(0) + _u16(imct) + _u16(0) + data)
+
+    out = bytearray()
+    out += mct_record(1, 1, [v for row in dec_matrix for v in row])
+    out += mct_record(2, 2, offsets)
+    p = bytearray()
+    p += _u16(0) + _u8(3) + _u16(0)  # Zmcc, Imcc, Ymcc
+    p += _u16(1) + _u8(0x1)  # Qmcc: one collection; Xmcc: array-based decorrelation
+    p += _u16(n) + b"".join(_u8(i) for i in range(n))  # Nmcc, input components
+    p += _u16(n) + b"".join(_u8(i) for i in range(n))  # Mmcc, output components
+    p += bytes([0, 2, 1])  # Tmcc: irreversible, offsets index 2, decorrelation index 1
+    out += segment(MCC, bytes(p))
+    out += segment(MCO, _u8(1) + _u8(3))
+    return bytes(out)
 
 
 def write_com(text: bytes, is_text: bool = True) -> bytes:
@@ -239,6 +279,47 @@ def read_qcc(c: Cursor, tcp: Tcp, num_comps: int) -> None:
     _read_sqcd(c, tcp.tccps[comp])
 
 
+def read_rgn(c: Cursor, tcp: Tcp, num_comps: int) -> None:
+    comp = c.u8() if num_comps <= 256 else c.u16()
+    if comp >= num_comps:
+        raise CodestreamError("RGN: bad component index")
+    if c.u8() != 0:
+        raise CodestreamError("RGN: unsupported style")
+    tcp.tccps[comp].roi_shift = c.u8()
+
+
+_MCT_ELEMS = {0: ">h", 1: ">i", 2: ">f", 3: ">d"}  # Imct bits 10-11
+
+
+def read_mct(c: Cursor, store: dict) -> None:
+    """One MCT segment into ``store[index] = (array type, values)``
+    (grok_tpu/codestream/markers.py:510-529)."""
+    c.u16()  # Zmct
+    imct = c.u16()
+    c.u16()  # Ymct
+    fmt = _MCT_ELEMS[(imct >> 10) & 0x3]
+    size = struct.calcsize(fmt)
+    raw = bytes(c.data[c.pos:c.end])
+    c.pos = c.end
+    store[imct & 0xFF] = ((imct >> 8) & 0x3,
+                          [struct.unpack(fmt, raw[i:i + size])[0]
+                           for i in range(0, len(raw) - size + 1, size)])
+
+
+def apply_mct_arrays(hi: HeaderInfo, arrays: dict) -> None:
+    """Install the MCT arrays parsed so far (``read_mct``'s store) in the
+    main header's coding parameters: an N x N decorrelation array (type 1)
+    as the float64 decoding matrix, N offsets (type 2) as the offsets
+    (grok_tpu/codestream/markers.py :552-564); MCC and MCO are not read, as
+    there."""
+    n = hi.siz.num_comps
+    for atype, vals in arrays.values():
+        if atype == 1 and len(vals) == n * n:
+            hi.default_tcp.mct_dec_matrix = np.asarray(vals, dtype=np.float64).reshape(n, n)
+        elif atype == 2 and len(vals) == n:
+            hi.default_tcp.mct_offsets = [float(v) for v in vals]
+
+
 def read_cap(c: Cursor) -> tuple[int, list[int]]:
     pcap = c.u32()
     return pcap, [c.u16() for _ in range(c.remaining() // 2)]
@@ -255,9 +336,13 @@ def refuse(m: int) -> None:
 
 
 def read_tile_marker(m: int, sub: Cursor, tcp: Tcp, num_comps: int) -> None:
-    """COD/COC/QCD/QCC of a main or tile-part header into ``tcp``."""
+    """COD/COC/QCD/QCC/RGN of a main or tile-part header into ``tcp``; MCT,
+    MCC and MCO are main-header markers, skipped here as the reference
+    does."""
     refuse(m)
-    if m == COD:
+    if m == RGN:
+        read_rgn(sub, tcp, num_comps)
+    elif m == COD:
         read_cod(sub, tcp, num_comps)
     elif m == COC:
         read_coc(sub, tcp, num_comps)
@@ -269,11 +354,13 @@ def read_tile_marker(m: int, sub: Cursor, tcp: Tcp, num_comps: int) -> None:
 
 def parse_main_header(data) -> tuple[HeaderInfo, int]:
     """Parse SOC..first SOT. Returns (HeaderInfo, offset of the first SOT).
-    COM is skipped; CRG, PRF and CPF are skipped as the reference does."""
+    COM, MCC and MCO are skipped; CRG, PRF and CPF are skipped as the
+    reference does."""
     c = Cursor(data)
     if c.u16() != SOC:
         raise InvalidMarkerError("no SOC marker")
     hi = HeaderInfo()
+    mct_arrays: dict[int, tuple[int, list[float]]] = {}
     siz_seen = False
     while True:
         m = c.u16()
@@ -295,8 +382,11 @@ def parse_main_header(data) -> tuple[HeaderInfo, int]:
             siz_seen = True
         elif m == CAP:
             hi.cap = read_cap(sub)
-        elif m in (COD, COC, QCD, QCC) and not siz_seen:
+        elif m in (COD, COC, QCD, QCC, RGN) and not siz_seen:
             raise CodestreamError("coding style before SIZ")
-        elif m != COM:
+        elif m == MCT:
+            read_mct(sub, mct_arrays)
+            apply_mct_arrays(hi, mct_arrays)
+        elif m not in (COM, MCC, MCO):
             read_tile_marker(m, sub, hi.default_tcp, hi.siz.num_comps)
         c.pos += ln - 2

@@ -135,6 +135,7 @@ def apply_band_quant(geom: TileCompGeom, tccp: TccpStyle, prec: int) -> None:
                 i = min(bidx, len(tccp.step_exps) - 1)
                 exp = tccp.step_exps[i]
                 mant = tccp.step_mants[i] if tccp.step_mants else 0
-            band.num_bps = tccp.guard_bits + exp - 1
+            # Mb includes the ROI upshift (T.800 E.1: Mb = G + eps - 1 + s)
+            band.num_bps = tccp.guard_bits + exp - 1 + tccp.roi_shift
             band.step = (1.0 if tccp.quant_style == QuantStyle.NO_QUANT
                          else (2.0 ** ((prec + gain) - exp)) * (1.0 + mant / 2048.0))

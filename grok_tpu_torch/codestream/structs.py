@@ -74,6 +74,7 @@ class TccpStyle:
     step_mants: list[int] = field(default_factory=list)  # 11-bit mantissas (9/7)
     irreversible: bool = False  # 9/7
     quant_style: QuantStyle = QuantStyle.NO_QUANT
+    roi_shift: int = 0  # ROI maxshift (RGN SPrgn), 0 = none
     # as read from a stream; the decoder refuses what the slices lack
     precinct_exps: list[tuple[int, int]] | None = None
 
@@ -94,8 +95,14 @@ class Tcp:
     csty: int = 0
     progression: ProgressionOrder = ProgressionOrder.LRCP
     num_layers: int = 1
-    mct: int = 0  # 0: none, 1: RCT (5/3) or ICT (9/7)
+    mct: int = 0  # 0: none, 1: RCT (5/3) or ICT (9/7), 2: Part-2 array MCT
     tccps: list[TccpStyle] = field(default_factory=list)
+    # Part-2 MCT (mct = 2): the float64 [N, N] decoding matrix and the N
+    # offsets (from the MCT markers, or what the encoder writes there), and
+    # the encoder's float64 encoding matrix
+    mct_dec_matrix: object | None = None
+    mct_offsets: list[float] | None = None
+    mct_enc_matrix: object | None = None
 
     def copy(self) -> "Tcp":
         return replace(self, tccps=[t.copy() for t in self.tccps])

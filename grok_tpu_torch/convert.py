@@ -90,6 +90,18 @@ def builtin_tables(device=None) -> dict[str, torch.Tensor]:
     }, device)
 
 
+def mct_arrays_from_numpy(dec_matrix, offsets) -> tuple[torch.Tensor, list[float]]:
+    """A Part-2 MCT as the inverse transform takes it (ops/transform.py
+    inverse_transform ``custom`` and ``offsets``) from the reference's parsed
+    arrays (its Tcp ``mct_dec_matrix`` [N, N] and ``mct_offsets`` [N]): the
+    decoding matrix rounded to float32, as its host path applies it, and the
+    offsets as floats."""
+    m = np.asarray(dec_matrix, dtype=np.float64)
+    if m.ndim != 2 or m.shape[0] != m.shape[1] or len(offsets) != m.shape[0]:
+        raise ValueError("a Part-2 MCT needs an N x N matrix and N offsets")
+    return torch.from_numpy(m.astype(np.float32)), [float(o) for o in offsets]
+
+
 def params_from_dict(d: dict) -> CompressParams:
     """CompressParams from a plain dict of its fields (e.g.
     ``dataclasses.asdict`` of grok_tpu's CompressParams)."""

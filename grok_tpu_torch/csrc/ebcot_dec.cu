@@ -17,7 +17,11 @@
 // segment). Reads past a segment's end give 0xFF, as in the reference.
 // Mid-bin reconstruction: a sample that becomes significant at plane p
 // gets 3 << p in the scaled-by-2 domain, refinements add or take 1 << p,
-// and the result is halved at the end (ebcot_jax.py :1007).
+// and the result is halved at the end (ebcot_jax.py :1007). A component
+// with an ROI shift s (RGN, style bits 8-15) has each scaled magnitude of
+// at least 1 << s shifted down by s before the halving, the scaled-domain
+// rule of the reference's default decoder (native/t1_coder.cpp:1143-1158,
+// t1/ebcot_np.py:447-455), not ebcot_jax.py:1182-1189's rule after it.
 //
 // Bound on an H100 (3.35 TB/s): bytes, each codeblock's segments read once
 // and its int32 samples written once (about 0.04 ms at 3840x2160x3). What
@@ -371,9 +375,15 @@ ebcot_dec_kernel(const uint8_t* __restrict__ data, const int64_t* __restrict__ s
         for (int k = 0; k < fsize; ++k) blk.F[k] &= ~F_VIS;  // next plane: unvisited
     }
 
+    // the ROI downshift (style bits 8-15) in the scaled domain, before the
+    // half bit is dropped, as native/t1_coder.cpp:1143-1158 does; a shift of
+    // 32 or more exceeds every magnitude and leaves it as it is
+    const uint32_t rs = ((uint32_t)style >> 8) & 0xFF;
     for (int y = 0; y < h; ++y) {
         for (int x = 0; x < w; ++x) {
-            const int32_t m = blk.o[y * bw + x] >> 1;
+            uint32_t m2 = (uint32_t)blk.o[y * bw + x];
+            if (rs && rs < 32 && m2 >= (1u << rs)) m2 >>= rs;
+            const int32_t m = (int32_t)(m2 >> 1);
             blk.o[y * bw + x] = (blk.F[(y + 1) * blk.st + x + 1] & F_NEG) ? -m : m;
         }
     }

@@ -7,10 +7,12 @@ process per source, all started together; a library is named after the
 hash of its source and its flags, so an edited source, or one built with
 other flags, is rebuilt and an unchanged one is reused. A failed build
 raises: nothing falls back to a plain version. The float kernels (the 9/7
-path, and the float64 distortions, energies and hull slopes of rate
-control) are built with -fmad=false (FLOAT_FLAGS): nvcc would otherwise
-contract a product and a sum into one fused multiply-add, which rounds once
-where the host path rounds twice.
+path, the Part-2 MCT, and the float64 distortions, energies and hull slopes
+of rate control) are built with -fmad=false (FLOAT_FLAGS): nvcc would
+otherwise contract a product and a sum into one fused multiply-add, which
+rounds once where the host path rounds twice. Where the host path does
+fuse (numpy's float32 matmul of the Part-2 MCT), the source writes
+__fmaf_rn itself, which the flag leaves alone.
 
 Every kernel's wrapper adds one to its ``Kernel.launches`` where it calls
 the library, and nowhere else (``launch_counts``/``reset_launch_counts``).
@@ -121,6 +123,20 @@ KERNELS: dict[str, Kernel] = {
                "grok_tpu/t1/ebcot_jax.py:504 (K5-enc: _build_encoder, its per-pass "
                "distortions _dd_sig_f32/_dd_ref_f32 :472-488)",
                (_P,) * 4 + (_I32,) * 6 + (_P,), FLOAT_FLAGS),
+        Kernel("dc_mct_fwd", "mct_custom.cu",
+               "grok_tpu/ops/jax_pipeline.py:70-79 (K2-fwd Part-2: DC shift + the "
+               "custom MCT, ops/mct.py:83 custom_mct_forward)",
+               (_P,) * 5 + (_I64, _I32, _P), FLOAT_FLAGS),
+        Kernel("mct_inv_round_clip", "mct_custom.cu",
+               "grok_tpu/ops/jax_pipeline.py:192-197, :206-217 (K2-inv Part-2: the "
+               "custom inverse MCT, offsets, round, clip)",
+               (_P,) * 7 + (_I64, _I32, _P), FLOAT_FLAGS),
+        Kernel("roi_up", "roi.cu",
+               "grok_tpu/ops/jax_pipeline.py:103-108 (K2-fwd: ROI maxshift upshift)",
+               (_P, _I64, _I32, _P)),
+        Kernel("roi_down", "roi.cu",
+               "grok_tpu/ops/jax_pipeline.py:168-176 (K2-inv: ROI maxshift downshift)",
+               (_P, _I64, _I32, _P)),
         Kernel("hull_slopes", "hull.cu",
                "native/pipeline.cpp:630 (hull_slopes, host C++ of "
                "grok_tpu/t2/rate_control.py:17 hull_effective_slopes)",

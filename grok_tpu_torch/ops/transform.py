@@ -7,8 +7,10 @@ make_inverse_fn (:144-223) over ops/mct.py (dc shift :64, rct_forward :33,
 rct_inverse :41, ict_forward :48, ict_inverse :56) and ops/dwt.py
 (fwd53_axis :112, inv53_axis :128, fwd97_axis :148, inv97_axis :172,
 forward :259, inverse :285), held to grok_tpu's default host path
-(tile/tile_processor.py:280-390 and :1340-1660 over native/pipeline.cpp).
-Ten kernels live here, each beside its plain torch version:
+(tile/tile_processor.py:280-390 and :1340-1660 over native/pipeline.cpp),
+with the Part-2 MCT (make_forward_fn :70-79, make_inverse_fn :192-197)
+and the ROI maxshift (:103-108, :168-176).
+Fourteen kernels live here, each beside its plain torch version:
 
 - reversible: K-a ``dc_rct_fwd`` (csrc/dc_rct.cu), K-b ``dwt53_fwd_level``
   (csrc/dwt53.cu), K-g ``dwt53_inv_level`` (csrc/dwt53_inv.cu) and K-h
@@ -22,6 +24,12 @@ Ten kernels live here, each beside its plain torch version:
   kernels are built with -fmad=false and write __fmul_rn/__fadd_rn; the
   plain versions are one tensor op per product and per sum, which neither
   the CPU nor the card contracts).
+
+- the Part-2 MCT: K-r ``dc_mct_fwd`` and K-s ``mct_inv_round_clip``
+  (csrc/mct_custom.cu), float32 fused multiply-add chains in k order, as
+  numpy's float32 matmul of the host path computes them (explicit
+  __fmaf_rn; the plain versions round each fused step once, from float64);
+- the ROI maxshift: K-t ``roi_up`` and ``roi_down`` (csrc/roi.cu), int32.
 
 A wrapper takes the plain version only for CPU tensors; CUDA tensors
 launch the kernel. So the kernels and their plain versions are bit-exact.
@@ -161,24 +169,33 @@ def _levels(rect: Rect, nl: int) -> list[Rect]:
 
 def forward_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels: list[int],
                       dcs: list[int], mct: bool, irreversible: bool = False,
-                      bands: list[list[tuple]] | None = None) -> list[torch.Tensor]:
-    """DC shift, colour transform (RCT or ICT when ``mct``) and multi-level
-    5/3 or 9/7 of a tile's components; returns the Mallat-packed int32
-    coefficient planes (resolution r occupies the top-left
-    ceil(rect / 2^(NL-r))). 9/7 coefficients are quantized per band:
-    ``bands[c]`` lists component c's (oy, ox, h, w, step) in the packed
-    plane."""
+                      bands: list[list[tuple]] | None = None, rois: list[int] | None = None,
+                      custom=None) -> list[torch.Tensor]:
+    """DC shift, colour transform (RCT or ICT when ``mct``, or the Part-2
+    MCT with the float32 [N, N] encoding matrix ``custom``, 9/7 only) and
+    multi-level 5/3 or 9/7 of a tile's components; returns the
+    Mallat-packed int32 coefficient planes (resolution r occupies the
+    top-left ceil(rect / 2^(NL-r))). 9/7 coefficients are quantized per
+    band: ``bands[c]`` lists component c's (oy, ox, h, w, step) in the
+    packed plane. A component with ``rois[c]`` > 0 is upshifted by it
+    (ROI maxshift)."""
     if not irreversible:
+        if custom is not None:
+            raise ValueError("the Part-2 MCT takes the irreversible transform")
         out = dc_rct_fwd(planes, dcs, mct)
         for plane, rect, nl in zip(out, rects, num_levels):
             for cur in _levels(rect, nl):
                 dwt53_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
-        return out
-    out = dc_ict_fwd(planes, dcs, mct)
-    for plane, rect, nl in zip(out, rects, num_levels):
-        for cur in _levels(rect, nl):
-            dwt97_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
-    return [quant_deadzone(plane, b) for plane, b in zip(out, bands)]
+    else:
+        out = dc_ict_fwd(planes, dcs, mct) if custom is None else dc_mct_fwd(planes, dcs, custom)
+        for plane, rect, nl in zip(out, rects, num_levels):
+            for cur in _levels(rect, nl):
+                dwt97_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
+        out = [quant_deadzone(plane, b) for plane, b in zip(out, bands)]
+    for plane, s in zip(out, rois or ()):
+        if s:
+            roi_up(plane, s)
+    return out
 
 
 # ============================================= K-g: one inverse 5/3 level
@@ -272,21 +289,32 @@ def rct_inv_dc_clip_plain(planes, dcs, ranges, rct):
 def inverse_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels: list[int],
                       precs: list[int], signeds: list[bool], mct: bool,
                       irreversible: bool = False,
-                      bands: list[list[tuple]] | None = None) -> list[torch.Tensor]:
+                      bands: list[list[tuple]] | None = None, rois: list[int] | None = None,
+                      custom=None, offsets: list[float] | None = None) -> list[torch.Tensor]:
     """Inverse of ``forward_transform`` on a tile's Mallat-packed int32
-    planes: (9/7: mid-bin dequantization per band,) the inverse 5/3 or 9/7
-    of every level, coarsest first, then the inverse colour transform, DC
+    planes: (the ROI downshift of a component with ``rois[c]`` > 0, in
+    place; 9/7: mid-bin dequantization per band,) the inverse 5/3 or 9/7
+    of every level, coarsest first, then the inverse colour transform (or,
+    9/7 only, the Part-2 MCT with the float32 [N, N] decoding matrix
+    ``custom`` and the stream's ``offsets`` in place of the DC shifts), DC
     shift, rounding and clip; returns the int32 component samples (the
     5/3 chain works in place)."""
     dcs = [0 if s else 1 << (p - 1) for p, s in zip(precs, signeds)]
     ranges = [(-(1 << (p - 1)), (1 << (p - 1)) - 1) if s else (0, (1 << p) - 1)
               for p, s in zip(precs, signeds)]
+    for plane, s in zip(planes, rois or ()):
+        if s:
+            roi_down(plane, s)
     inv = dwt97_inv_level if irreversible else dwt53_inv_level
     if irreversible:
         planes = [dequant_midbin(p, b) for p, b in zip(planes, bands)]
+    elif custom is not None:
+        raise ValueError("the Part-2 MCT takes the irreversible transform")
     for plane, rect, nl in zip(planes, rects, num_levels):
         for cur in reversed(_levels(rect, nl)):
             inv(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
+    if custom is not None:
+        return mct_inv_round_clip(planes, custom, dcs if offsets is None else offsets, ranges)
     if irreversible:
         return ict_inv_dc_round_clip(planes, dcs, ranges, mct)
     return rct_inv_dc_clip(planes, dcs, ranges, mct)
@@ -545,3 +573,153 @@ def ict_inv_dc_round_clip_plain(planes, dcs, ranges, ict):
         f = torch.where(f > lo, f, float(lo))  # NaN -> lo
         outs.append(torch.where(f > hi, float(hi), f).to(torch.int32))
     return outs
+
+
+# ============================================= K-r / K-s: the Part-2 custom MCT
+# one MCT marker segment holds at most 127 x 127 float32 elements: the
+# reference writes no larger matrix (markers.py write_mct_markers)
+MCT_MAX_COMPS = 127
+
+
+def _mct_args(planes: list[torch.Tensor], matrix, dtype) -> tuple[torch.device, torch.Tensor]:
+    """The planes' device and ``matrix`` as a float32 [N, N] host tensor;
+    N must be the number of planes, which share one shape."""
+    dev = _check_planes(planes, False, dtype)
+    m = torch.as_tensor(matrix, dtype=torch.float32).cpu().contiguous()
+    n = len(planes)
+    if m.shape != (n, n):
+        raise ValueError(f"the Part-2 MCT of {n} components needs an {n} x {n} matrix, "
+                         f"got {tuple(m.shape)}")
+    if n > MCT_MAX_COMPS:
+        raise UnsupportedFeatureError(
+            f"outside the ported slices: a Part-2 MCT of more than {MCT_MAX_COMPS} components")
+    if any(p.shape != planes[0].shape for p in planes):
+        raise ValueError("the Part-2 MCT needs equally-sized planes")
+    return dev, m
+
+
+def _mct_launch(name: str, planes: list[torch.Tensor], outs: list[torch.Tensor],
+                m: torch.Tensor, *per: torch.Tensor) -> None:
+    """K-r or K-s: the launch copies the plane addresses, the matrix and the
+    per-component arrays ``per`` from host tensors into a device scratch of
+    16 N + 4 N^2 + 12 N bytes, in one copy (csrc/mct_custom.cu)."""
+    n, dev = len(planes), planes[0].device
+    ins, outp = (torch.tensor([p.data_ptr() for p in ps], dtype=torch.int64)
+                 for ps in (planes, outs))
+    scratch = torch.empty(16 * n + 4 * n * n + 12 * n, dtype=torch.uint8, device=dev)
+    kernels.KERNELS[name].call(
+        ins.data_ptr(), outp.data_ptr(), m.data_ptr(), *(a.data_ptr() for a in per),
+        scratch.data_ptr(), planes[0].numel(), n, kernels.stream_ptr(dev))
+
+
+def _fma32(w: float, x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """float32 fma(w, x, acc), rounded once, from float64 arithmetic: the
+    product is exact in float64; the sum's rounding error (TwoSum) decides
+    the one case where rounding the float64 sum again to float32 would
+    differ, a float64 sum that lands exactly halfway between two float32s."""
+    p = x.double() * w
+    c = acc.double()
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    r = s.float()
+    d = s - r.double()
+    nb = torch.nextafter(r, torch.where(d > 0, torch.full_like(r, float("inf")),
+                                        torch.full_like(r, float("-inf"))))
+    tie = (d != 0) & (s == (r.double() + nb.double()) * 0.5)
+    return torch.where(tie & (err != 0) & ((err > 0) == (d > 0)), nb, r)
+
+
+def _mct_rows(m: torch.Tensor, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each output m[o, 0] x_0, then fma(m[o, k], x_k, .) for k = 1..N-1:
+    numpy's float32 ``matrix @ flat`` (grok_tpu/ops/mct.py:83-89)."""
+    outs = []
+    for row in m.cpu().tolist():
+        acc = (xs[0].double() * row[0]).float()
+        for w, x in zip(row[1:], xs[1:]):
+            acc = _fma32(w, x, acc)
+        outs.append(acc)
+    return outs
+
+
+def dc_mct_fwd(planes: list[torch.Tensor], dcs: list[int], matrix) -> list[torch.Tensor]:
+    """K-r: new float32 planes, the Part-2 MCT of ``float(planes[k] -
+    dcs[k])`` with the [N, N] encoding ``matrix`` (rounded to float32), each
+    output one fused multiply-add chain over k = 0..N-1."""
+    dev, m = _mct_args(planes, matrix, torch.int32)
+    if dev.type == "cpu":
+        return dc_mct_fwd_plain(planes, dcs, m)
+    outs = [torch.empty(p.shape, dtype=torch.float32, device=dev) for p in planes]
+    _mct_launch("dc_mct_fwd", planes, outs, m, torch.tensor(dcs, dtype=torch.int32))
+    return outs
+
+
+def dc_mct_fwd_plain(planes, dcs, matrix):
+    m = torch.as_tensor(matrix, dtype=torch.float32)
+    return _mct_rows(m, [(p - dc).to(torch.float32) for p, dc in zip(planes, dcs)])
+
+
+def mct_inv_round_clip(planes: list[torch.Tensor], matrix, offsets: list[float],
+                       ranges: list[tuple[int, int]]) -> list[torch.Tensor]:
+    """K-s: new int32 planes from float32 ones: the Part-2 MCT with the [N, N]
+    decoding ``matrix`` (rounded to float32; the fused chain of K-r), then
+    floor(v + float32(0.5 + offsets[c])) clipped to ``ranges[c]``, NaN to
+    the low end (native/pipeline.cpp finish_irrev :597-611)."""
+    dev, m = _mct_args(planes, matrix, torch.float32)
+    if dev.type == "cpu":
+        return mct_inv_round_clip_plain(planes, m, offsets, ranges)
+    outs = [torch.empty(p.shape, dtype=torch.int32, device=dev) for p in planes]
+    add = torch.tensor([_f32(0.5 + float(o)) for o in offsets], dtype=torch.float32)
+    lo, hi = (torch.tensor(v, dtype=torch.int32) for v in zip(*ranges))
+    _mct_launch("mct_inv_round_clip", planes, outs, m, add, lo, hi)
+    return outs
+
+
+def mct_inv_round_clip_plain(planes, matrix, offsets, ranges):
+    m = torch.as_tensor(matrix, dtype=torch.float32)
+    outs = []
+    for v, off, (lo, hi) in zip(_mct_rows(m, list(planes)), offsets, ranges):
+        f = torch.floor(v + _f32(0.5 + float(off)))
+        f = torch.where(f > lo, f, float(lo))  # NaN -> lo
+        outs.append(torch.where(f > hi, float(hi), f).to(torch.int32))
+    return outs
+
+
+# ============================================= K-t: the ROI maxshift
+ROI_MAX_SHIFT = 30  # 1 << shift must stay an int32
+
+
+def _roi(name: str, plain, plane: torch.Tensor, shift: int) -> torch.Tensor:
+    _check_plane(plane, "plane")
+    if not 1 <= shift <= ROI_MAX_SHIFT:
+        raise UnsupportedFeatureError(
+            f"outside the ported slices: an ROI shift of {shift} (1..{ROI_MAX_SHIFT})")
+    dev = plane.device
+    if dev.type == "cpu":
+        return plain(plane, shift)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    kernels.KERNELS[name].call(plane.data_ptr(), plane.numel(), shift, kernels.stream_ptr(dev))
+    return plane
+
+
+def roi_up(plane: torch.Tensor, shift: int) -> torch.Tensor:
+    """K-t up: ``plane << shift`` in place (int32, wrapping); returns it."""
+    return _roi("roi_up", roi_up_plain, plane, shift)
+
+
+def roi_up_plain(plane, shift):
+    return plane.bitwise_left_shift_(shift)
+
+
+def roi_down(plane: torch.Tensor, shift: int) -> torch.Tensor:
+    """K-t down, in place: a magnitude of at least ``1 << shift`` shifts
+    down by ``shift``, the sign kept (native/pipeline.cpp roi_unshift);
+    returns the plane."""
+    return _roi("roi_down", roi_down_plain, plane, shift)
+
+
+def roi_down_plain(plane, shift):
+    mag = plane.abs()
+    mag = torch.where(mag >= (1 << shift), mag >> shift, mag)
+    return plane.copy_(torch.where(plane < 0, -mag, mag))

@@ -10,6 +10,10 @@ kernel's (t1/ebcot_cuda.py ``ebcot_decode``): one flat byte buffer with
 each codeblock's start, and the merged codeword segment lengths of the
 TERMALL and BYPASS codeblocks.
 
+An ROI shift s rides style bits 8-15 (the reference's tile_processor.py
+:986-997): magnitudes of at least 1 << s in the scaled domain shift down
+by s before the halving, as ebcot_np.py:447-455 and the native decoder do.
+
 State planes are lane-minor, [hp + 2, w + 2, n] with a one-sample border:
 significance S, sign contribution CV (+1 or -1 once significant), visited
 V, refined R, magnitudes MAG in the scaled-by-2 domain (a sample that
@@ -228,6 +232,14 @@ def ebcot_decode_plain(data: torch.Tensor, starts: torch.Tensor, lanes: torch.Te
             end_pass(lp[2], lanes_m)
         V.zero_()  # 'visited' restarts with the next plane
 
-    mag = MAG[1:bh + 1, 1:bw + 1] >> 1
+    # the ROI downshift (style bits 8-15) in the scaled domain, before the
+    # half bit is dropped (ebcot_np.py:447-455)
+    m2 = MAG[1:bh + 1, 1:bw + 1]
+    rs = (sty >> 8) & 0xFF
+    if bool((rs > 0).any()):
+        sh = rs.clamp(max=31)
+        m2 = torch.where((rs > 0) & (rs < 32) & (m2 >= (torch.ones_like(sh) << sh)),
+                         m2 >> sh, m2)
+    mag = m2 >> 1
     out = torch.where(CV[1:bh + 1, 1:bw + 1] < 0, -mag, mag)
     return out.permute(2, 0, 1).to(torch.int32).contiguous()

@@ -102,7 +102,7 @@ def geom_cache_key(comp: int, tc_rect: Rect, tccp: TccpStyle) -> tuple:
     return (
         comp, tc_rect.x0, tc_rect.y0, tc_rect.x1, tc_rect.y1,
         tccp.num_resolutions, tccp.cblk_w_exp, tccp.cblk_h_exp,
-        tccp.guard_bits, tuple(tccp.step_exps),
+        tccp.guard_bits, tuple(tccp.step_exps), tccp.roi_shift,
     )
 
 

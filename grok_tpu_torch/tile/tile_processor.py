@@ -10,8 +10,11 @@ native path, _layer_targets :737, _mct_weights :866) and the Python
 _emit_packets (:655) for any number of quality layers; and decompress
 (:1303) over the object T2 path _decompress_t1_objects (:1154, layer
 limits and the merge of segment pieces included) with the device inverse
-chain (:1422-1442). The plane-limited re-encode of the reference
-(GROK_TPU_RATE_SKIP, :509-529) is not ported: it needs its host T1.
+chain (:1422-1442), with the Part-2 MCT (:327-337, :1599-1602) and the
+ROI maxshift (:379-384; on decode in K-i's writeout for Part-1, :986-997,
+and on the staging planes for HT, :1487-1500). The plane-limited
+re-encode of the reference (GROK_TPU_RATE_SKIP, :509-529) is not ported:
+it needs its host T1.
 
 The coefficients stay on the device from the transform through the
 gather and the T1 kernels; only the codeblock bytes, lengths, repaired
@@ -158,10 +161,14 @@ class TileProcessor:
                   for a in comp_arrays]
         clock.mark("upload")
         dcs = [0 if c.signed else 1 << (c.prec - 1) for c in siz.comps]
+        # the Part-2 encoding matrix in float32, as the host path applies it
+        # (the reference's :327-337)
+        custom = None if tcp.mct != 2 else np.asarray(tcp.mct_enc_matrix, dtype=np.float32)
         coeffs = forward_transform(
             planes, [g.rect for g in self.geoms],
             [t.num_resolutions - 1 for t in tcp.tccps], dcs, self._mct(),
-            self.irreversible, self.band_tables() if self.irreversible else None)
+            self.irreversible, self.band_tables() if self.irreversible else None,
+            rois=self._rois(), custom=custom)
         clock.mark("transform")
         return self._entropy_and_t2(coeffs, clock)
 
@@ -172,7 +179,11 @@ class TileProcessor:
         return self.tcp.tccps[0].irreversible
 
     def _mct(self) -> bool:
+        """The RCT or ICT (the Part-2 MCT, mct = 2, is another path)."""
         return self.tcp.mct == 1 and self.siz.num_comps >= 3
+
+    def _rois(self) -> list[int]:
+        return [t.roi_shift for t in self.tcp.tccps]
 
     def _apply_band_quant(self) -> None:
         """Each band's Mb and step; RCT (never ICT) widens chroma by a bit
@@ -251,7 +262,8 @@ class TileProcessor:
     def _mct_weights(self) -> list[float]:
         """L2 norms of the inverse MCT's columns, the error-propagation
         weights of each component (the reference's :866), from the float64
-        matrices."""
+        matrices; 1.0 for every component without the RCT or ICT, the
+        Part-2 MCT included (the reference's :870)."""
         ncomp = self.siz.num_comps
         if not self._mct():
             return [1.0] * ncomp
@@ -467,6 +479,7 @@ class TileProcessor:
 
         # ---- the codeblocks that carry data; the others decode to zeros
         use_ht = bool(tcp.tccps[0].cblk_style & CBLK_HT)
+        rois = [0 if use_ht else r for r in self._rois()]
         offsets = np.cumsum([0] + [g.rect.area for g in self.geoms])
         segs: list[bytes] = []
         cols: list[tuple[int, ...]] = []
@@ -485,9 +498,11 @@ class TileProcessor:
                 x0 = cg.rect.x0 - band.rect.x0 + ox
                 seg = b"".join(cb.segments)
                 segs.append(seg)
+                # a Part-1 codeblock's ROI shift rides style bits 8-15 to K-i
+                # (the reference's :986-997)
                 cols.append((int(offsets[c]) + y0 * g.rect.width + x0, g.rect.width,
                              cg.rect.height, cg.rect.width, cb.numbps, cb.npasses,
-                             band.orient, cb.style & 0x3F, len(seg)))
+                             band.orient, (cb.style & 0x3F) | (rois[c] << 8), len(seg)))
                 merged.append(merge_segments(cb.style, [len(p) for p in cb.segments],
                                              cb.seg_passes)
                               if cb.style & SEGMENTED else [])
@@ -525,10 +540,16 @@ class TileProcessor:
                   for c, g in enumerate(self.geoms)]
         clock.mark("scatter")
         comps = siz.comps
+        # HT codeblocks get the ROI downshift on the staging planes (the
+        # reference's :1487-1500); K-i already applied it to Part-1 ones
         out_planes = inverse_transform(
             planes, [g.rect for g in self.geoms],
             [t.num_resolutions - 1 for t in tcp.tccps], [c.prec for c in comps],
             [c.signed for c in comps], self._mct(), self.irreversible,
-            self.band_tables() if self.irreversible else None)
+            self.band_tables() if self.irreversible else None,
+            rois=self._rois() if use_ht else None,
+            custom=(None if tcp.mct != 2
+                    else np.asarray(tcp.mct_dec_matrix, dtype=np.float32)),
+            offsets=tcp.mct_offsets)
         clock.mark("inverse")
         return out_planes

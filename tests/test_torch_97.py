@@ -278,7 +278,8 @@ def test_three_layer_stream_at_every_max_layers():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mct_matrix=np.eye(3)), dict(custom_mct=np.eye(3)), dict(roi_comp=0, roi_shift=2),
+    # the Part-2 MCT and ROI are ported: their limits are refused by name
+    dict(mct_matrix=np.eye(128)), dict(write_ppt=True), dict(roi_comp=0, roi_shift=31),
     # layers and rate or quality targets are ported: the refusals beside
     # them stay
     dict(num_layers=2, use_eph=True), dict(layer_rates=[8.0], write_tlm=True),

@@ -4,8 +4,9 @@ chip_smoke.py holds every stream the card writes to ``REF_SHA256``, every
 9/7 and rate-controlled decode to ``REF_MD5`` and every corpus decode to
 ``CORPUS_REF_MD5``: these tests make ``grok_tpu.compress`` write the same
 images on the CPU (as Part-1, HTJ2K, 9/7 and layered, rate-controlled
-streams) and ``grok_tpu.decompress`` decode them and the corpus, and check
-the constants, so a wrong constant cannot pass on the card."""
+streams, and with the Part-2 MCT and ROI) and ``grok_tpu.decompress``
+decode them and the corpus, and check the constants, so a wrong constant
+cannot pass on the card."""
 
 import functools
 import hashlib
@@ -24,7 +25,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
 # the image is made once for the three encodes of each size
-natural_image = functools.lru_cache(maxsize=2)(chip_smoke.natural_image)
+natural_image = functools.lru_cache(maxsize=3)(chip_smoke.natural_image)
 
 
 @pytest.mark.parametrize("h,w", [(256, 256), (chip_smoke.H, chip_smoke.W)])
@@ -86,6 +87,39 @@ def test_reference_1bpp_stream_and_decode_have_the_pinned_digests():
     assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
     back = grok_tpu.decompress(out)
     assert golden_md5([c.data for c in back.components]) == chip_smoke.REF_MD5[key]
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.MCT_ROI_CASES))
+def test_reference_mct_roi_streams_and_decodes_have_the_pinned_digests(case):
+    """slice_mct_roi's Part-2 MCT and ROI streams at 256x256, decoded with
+    max_layers 0 and 1."""
+    nc, kw = chip_smoke.MCT_ROI_CASES[case]
+    arr = natural_image(256, 256, nc)
+    out = grok_tpu.compress(grok_tpu.Image.from_array(arr), grok_tpu.CompressParams(**kw))
+    key = f"{case} 256x256x{nc}"
+    assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
+    for k in (0, 1):
+        back = grok_tpu.decompress(out, grok_tpu.DecompressParams(max_layers=k))
+        assert golden_md5([c.data for c in back.components]) == chip_smoke.REF_MD5[f"{key} L{k}"]
+
+
+@pytest.mark.parametrize("name", ["mct", "roi", "roi_ht"])
+def test_reference_4k_mct_and_roi_streams_have_the_pinned_digests(name):
+    """e2e_mct (PMCT), e2e_roi (PROI) and e2e_roi_ht (PROI_HT) at full size:
+    the streams, the MCT stream's decode digest, the lossless ROI streams'
+    decodes the input."""
+    kw = {"mct": chip_smoke.PMCT, "roi": chip_smoke.PROI, "roi_ht": chip_smoke.PROI_HT}[name]
+    arr = natural_image(chip_smoke.H, chip_smoke.W, chip_smoke.NC)
+    out = grok_tpu.compress(grok_tpu.Image.from_array(arr), grok_tpu.CompressParams(**kw))
+    key = f"{name} {chip_smoke.H}x{chip_smoke.W}x{chip_smoke.NC}"
+    assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
+    planes = [c.data for c in grok_tpu.decompress(out).components]
+    if name == "mct":
+        assert golden_md5(planes) == chip_smoke.REF_MD5[key]
+    else:
+        assert key not in chip_smoke.REF_MD5
+        for c, p in enumerate(planes):
+            np.testing.assert_array_equal(p, arr[:, :, c])
 
 
 def test_p1bpp_is_benchs_lossy97_1bpp_row():

@@ -104,9 +104,10 @@ def test_stream_identical_to_pallas_interpret(reference_env):
 
 @pytest.mark.parametrize("kw", [
     dict(ht=True, ht_refine=True), dict(irreversible=True, quant_style=gt.QuantStyle.NO_QUANT),
-    # layers and rate targets are ported: the refusals beside them stay
-    dict(mct_matrix=np.eye(3)), dict(num_layers=2, write_ppt=True),
-    dict(layer_rates=[10.0], write_plm=True), dict(roi_comp=0, roi_shift=2),
+    # layers and rate targets, the Part-2 MCT and ROI are ported: the
+    # refusals beside them, and the MCT's and ROI's limits, stay
+    dict(mct_matrix=np.eye(128)), dict(num_layers=2, write_ppt=True),
+    dict(layer_rates=[10.0], write_plm=True), dict(roi_comp=0, roi_shift=31),
     dict(precinct_sizes=[(7, 7)]),
     dict(use_sop=True), dict(use_eph=True), dict(write_tlm=True), dict(write_plt=True),
     dict(tp_divider="R"), dict(profile=3), dict(cblk_style=0x40),

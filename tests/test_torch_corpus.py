@@ -5,7 +5,8 @@ The in-slice streams in FAST decode with the manifest's decode parameters
 to planes sample-identical to grok_tpu.decompress's. The plain Part-1
 decoder steps all codeblocks of a batch in lockstep at about 0.2 ms a
 decision, so only streams the plain path finishes in a few seconds are
-here. The other in-slice streams (74) are left out; chip_smoke.py's corpus
+here, and the five RGN streams (20-45 s each: ROI shifts add bit-planes),
+the only corpus streams of the ROI path. The other in-slice streams (74) are left out; chip_smoke.py's corpus
 phase decodes every stream on the card against grok_tpu's digests
 (CORPUS_REF_MD5). They are:
   allstyles, big_offset, bypass, bypass_ht_mix_gray, cblk_1024x4,
@@ -57,6 +58,11 @@ FAST = [
     "lossy97_ht.j2k",
     "lossy97_rates.j2k",
     "lossy97_tiles_l1.j2k",
+    "roi_both_comps.j2k",
+    "roi_c0_u4.j2k",
+    "roi_c1_u6_tiles.j2k",
+    "roi_gray16.j2k",
+    "roi_lossy.j2k",
     "row_1x200.j2k",
     "sub420_16_ht.j2k",
     "tiny_5x3.j2k",
@@ -108,11 +114,6 @@ REFUSED = {  # stream: the feature its refusal names
     "precincts.j2k": "precinct sizes",
     "res7_reduce3.j2k": "reduce",
     "res8_reduce5.j2k": "reduce",
-    "roi_both_comps.j2k": "RGN",
-    "roi_c0_u4.j2k": "RGN",
-    "roi_c1_u6_tiles.j2k": "RGN",
-    "roi_gray16.j2k": "RGN",
-    "roi_lossy.j2k": "RGN",
     "sop_eph.j2k": "SOP/EPH",
     "sop_eph_ht.j2k": "SOP/EPH",
     "tlm_ht_rpcl.j2k": "PLT",

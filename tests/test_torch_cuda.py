@@ -4,9 +4,10 @@ present; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Every comparison is exact: the nine kernels of the lossless paths are
-integer-only, the six of the 9/7 path (K-j ... K-o) round every float
-product and sum on their own, as their plain versions do, so they are
+Every comparison is exact: the nine kernels of the lossless paths and
+K-t are integer-only, the six of the 9/7 path (K-j ... K-o) round every
+float product and sum on their own, as their plain versions do, and K-r
+and K-s round each fused multiply-add once, as theirs do, so they are
 compared on their float32 bits, and the float64 sums of rate control (K-p,
 K-e's energy, K-q) run in their plain versions' order."""
 
@@ -690,3 +691,110 @@ def test_rate_control_on_card_equals_plain_path(cuda, kw):
         b = gt.decompress(on_card, gt.DecompressParams(max_layers=k), device="cpu")
         for x, y in zip(a.components, b.components):
             np.testing.assert_array_equal(x.data, y.data)
+
+
+# ------------------------------ the Part-2 MCT (K-r, K-s) and ROI (K-t, K-i)
+def _bits32(t):
+    return t.cpu().view(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 6])
+def test_mct_kernels_equal_plain(cuda, n):
+    """K-r and K-s against their plain versions on float32 bits, NaN and
+    infinities through K-s's finish included."""
+    rng = np.random.default_rng(n + 50)
+    planes = [torch.from_numpy(rng.integers(0, 4096, (61, 97)).astype(np.int32))
+              for _ in range(n)]
+    m = np.eye(n) + rng.uniform(-0.4, 0.4, (n, n))
+    dcs = [2048] * n
+    before = _launches("dc_mct_fwd")
+    fwd = tr.dc_mct_fwd([p.to(cuda) for p in planes], dcs, m)
+    torch.cuda.synchronize()
+    assert _launches("dc_mct_fwd") == before + 1
+    want = tr.dc_mct_fwd_plain(planes, dcs, m)
+    for g, w in zip(fwd, want):
+        assert torch.equal(_bits32(g), w.view(torch.int32))
+    fwd[0][0, :3] = torch.tensor([float("nan"), float("inf"), -1e30])
+    inv = np.linalg.inv(m)
+    offs, ranges = [2048.0] * n, [(0, 4095)] * n
+    before = _launches("mct_inv_round_clip")
+    got = tr.mct_inv_round_clip(fwd, inv, offs, ranges)
+    torch.cuda.synchronize()
+    assert _launches("mct_inv_round_clip") == before + 1
+    for g, w in zip(got, tr.mct_inv_round_clip_plain([f.cpu() for f in fwd], inv, offs, ranges)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("shift", [1, 4, 6, 30])
+def test_roi_kernels_equal_plain(cuda, shift):
+    rng = np.random.default_rng(shift)
+    a = rng.integers(-(1 << 20), 1 << 20, (53, 77)).astype(np.int32)
+    a[0, :5] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0, -1, -(1 << shift)]
+    t = torch.from_numpy(a)
+    for name, fn, plain in (("roi_up", tr.roi_up, tr.roi_up_plain),
+                            ("roi_down", tr.roi_down, tr.roi_down_plain)):
+        before = _launches(name)
+        got = fn(t.to(cuda), shift)
+        torch.cuda.synchronize()
+        assert _launches(name) == before + 1
+        assert torch.equal(got.cpu(), plain(t.clone(), shift))
+
+
+@pytest.mark.parametrize("style", [0, 0x08, 0x3F])
+def test_ebcot_decode_kernel_roi_writeout_equals_plain(cuda, style):
+    """K-i with ROI shifts 1..7 in style bits 8-15 on codeblocks stopped at
+    seeded passes: the card's writeout equals the plain version's."""
+    from test_torch_part1_decode import kernel_inputs
+
+    n, bh, bw, bits = 8, 13, 16, 10
+    rng = np.random.default_rng(style + 70)
+    coeffs = np.clip(rng.laplace(size=(n, bh, bw)) * (1 << bits) / 12,
+                     -(1 << bits) + 1, (1 << bits) - 1).astype(np.int32)
+    hs, ws = rng.integers(1, bh + 1, n), rng.integers(1, bw + 1, n)
+    ors, styles = rng.integers(0, 4, n), np.full(n, style)
+    res = ec.encode_cblks(torch.from_numpy(coeffs).to(cuda), hs, ws, ors, styles=styles)
+    npasses = res.npasses.cpu().numpy()
+    flat, starts, lens, keep, seg_arr = kernel_inputs(
+        res.data.cpu().numpy(), res.lengths.cpu().numpy(), npasses,
+        res.pass_rates.cpu().numpy(), styles, rng.integers(0, npasses + 1))
+    roi = styles | (rng.integers(1, 8, n) << 8)
+    lanes = np.stack([res.numbps.cpu().numpy(), keep, hs, ws, ors, roi, lens])
+    args = [torch.from_numpy(flat), torch.from_numpy(starts.astype(np.int64)),
+            torch.from_numpy(lanes.astype(np.int32)), torch.from_numpy(seg_arr)]
+    tabs = ec.device_tables(cuda)
+    got = ec.ebcot_decode(*(a.to(cuda) for a in args), tabs["ctx"], tabs["mq"], bh, bw)
+    torch.cuda.synchronize()
+    want = ec.ebcot_decode_plain(*args, tabs["ctx"].cpu(), tabs["mq"].cpu(), bh, bw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mct_matrix=[[0.6, 0.3, 0.1], [-0.3, 0.5, -0.2], [0.1, -0.4, 0.5]]),
+    dict(mct_matrix=[[0.6, 0.3, 0.1], [-0.3, 0.5, -0.2], [0.1, -0.4, 0.5]], ht=True,
+         num_layers=2, layer_rates=[20, 8]),
+    dict(roi_comp=0, roi_shift=4, ht=True),
+    dict(roi_comp=1, roi_shift=6, irreversible=True, num_layers=3, layer_rates=[32, 16, 8]),
+    dict(roi_comp=2, roi_shift=5, tile_size=(24, 24)),
+], ids=["mct_97", "mct_97_ht_rates", "roi_53_ht", "roi_97_layers", "roi_53_tiles"])
+def test_mct_roi_on_card_equals_plain_path(cuda, kw):
+    """compress and decompress with the Part-2 MCT or ROI on the card: the
+    plain path's bytes and samples, max_layers 0 and 1, through K-r and K-s
+    or K-t."""
+    rng = np.random.default_rng(9)
+    arr = np.clip(rng.normal(128, 40, (40, 48, 3)), 0, 255).astype(np.int32)
+    params = dict(num_resolutions=3, **kw)
+    gt.reset_launch_counts()
+    on_card = gt.compress(gt.Image.from_array(arr), gt.CompressParams(**params))
+    assert on_card == gt.compress(gt.Image.from_array(arr), gt.CompressParams(**params),
+                                  device="cpu")
+    for k in (0, 1):
+        a = gt.decompress(on_card, gt.DecompressParams(max_layers=k))
+        b = gt.decompress(on_card, gt.DecompressParams(max_layers=k), device="cpu")
+        for x, y in zip(a.components, b.components):
+            np.testing.assert_array_equal(x.data, y.data)
+    counts = gt.launch_counts()
+    if "mct_matrix" in kw:
+        assert counts["dc_mct_fwd"] == 1 and counts["mct_inv_round_clip"] == 2
+    else:
+        assert counts["roi_up"] >= 1
+        assert (counts["roi_down"] > 0) == bool(kw.get("ht"))

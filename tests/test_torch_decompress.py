@@ -164,8 +164,12 @@ def test_outside_the_slice_raises():
     for kw in (dict(reduce=1), dict(window=(0, 0, 8, 8)), dict(tile_index=0)):
         with pytest.raises(gt.UnsupportedFeatureError, match=next(iter(kw))):
             gt.decompress(ht, gt.DecompressParams(**kw), device="cpu")
-    for kw in (dict(irreversible=True, roi_comp=0, roi_shift=2), dict(use_sop=True),
-               dict(write_plt=True),
+    roi = gk.compress(gk.Image.from_array(img), gk.CompressParams(
+        num_resolutions=2, ht=True, irreversible=True, roi_comp=0, roi_shift=2))
+    np.testing.assert_array_equal(  # inside the slices since the MCT and ROI slice
+        gt.decompress(roi, device="cpu").components[0].data,
+        gk.decompress(roi).components[0].data)
+    for kw in (dict(use_sop=True), dict(write_plt=True),
                dict(progression_changes=[gk.core.params.ProgressionChange(
                    0, 0, 1, 2, 1, gk.ProgressionOrder.LRCP)])):
         other = gk.compress(gk.Image.from_array(img),

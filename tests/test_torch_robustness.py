@@ -126,12 +126,12 @@ def test_a_tile_index_outside_the_grid_leaves_dc_midgray():
 
 
 def test_refused_feature_in_a_tile_still_raises():
-    """A tile-part header with a marker outside the slices (RGN) raises by
-    name: the tile tolerance does not hide a refusal."""
+    """A tile-part header with a feature outside the slices (an RGN shift
+    above 30) raises by name: the tile tolerance does not hide a refusal."""
     arr = natural_image(16, 16)
     s = gk.compress(gk.Image.from_array(arr), gk.CompressParams(num_resolutions=2))
     sot = s.find(b"\xff\x90")
-    rgn = b"\xff\x5e\x00\x05\x00\x00\x02"  # RGN: component 0, style 0, shift 2
+    rgn = b"\xff\x5e\x00\x05\x00\x00\x1f"  # RGN: component 0, style 0, shift 31
     psot = int.from_bytes(s[sot + 6:sot + 10], "big") + len(rgn)
     s = s[:sot + 6] + psot.to_bytes(4, "big") + s[sot + 10:sot + 12] + rgn + s[sot + 12:]
     with pytest.raises(gt.UnsupportedFeatureError, match="RGN"):
