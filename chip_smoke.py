@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
 """Drive grok_tpu_torch on one CUDA card: the Part-1 and HTJ2K encode and
 decode, lossless (5/3 + RCT) and lossy (9/7 + ICT), with quality layers
-and PCRD rate control, the Part-2 array MCT and component ROI (RGN).
+and PCRD rate control, the Part-2 array MCT and component ROI (RGN), and
+the multi-device layer (K6: the distributed encode, decode and frame
+entry points and the sharded strip wavelet) over a mesh of the cards
+present, or of four shards on one card.
 
 Run from the repository root:  python3 chip_smoke.py
+On a machine with two or more cards, ``python3 chip_smoke.py --cards``
+runs the K6 phases alone (slice_dist, e2e_dist, e2e_frames, slice_strip),
+over every card and then over a virtual mesh of as many shards on the
+first card.
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -25,7 +32,10 @@ line):
               lossy97 batch (K-p's plain on the card, K-q's on the CPU); K-r
               and K-s (the Part-2 MCT with M3 and back) and K-t (a packed
               plane shifted up and down) on the whole image, plain on the
-              card; all compared exactly, the float outputs on their bits
+              card; K-u, K-v and K-b/K-g/K-k/K-n's horizontal halves on the
+              level-0 sub-block of a shard of the 4096x4096 strip, K-w on
+              the 4K tile batch, plain on the card; all compared exactly,
+              the float outputs on their bits
   5. slice    256x256x3 compress on the card, byte-identical to the plain
               path (device="cpu") and to grok_tpu's stream (REF_SHA256);
      slice_p1dec  the Part-1 stream decoded on the card, equal to the plain
@@ -79,6 +89,31 @@ line):
               must launch (the down entry runs on HT decodes only)
   9. truncated  a 40x40x3 stream with 24x24 tiles, Part-1 and HT, cut to
               10-99% of its length: the card's planes equal the plain path's
+     slice_dist  K6 over the mesh (mesh: every card when there are two or
+              more, else four shards on the one card): 256x256x3 at 64x64
+              and 37x37 tiles (the odd-parity regression), 5/3 and 9/7,
+              Part-1 and HT, through compress_distributed (the port's
+              compress stream), decompress_distributed (its decompress
+              planes) and, once a coding, compress_frames of three frames
+              (each frame's compress stream)
+     e2e_dist 3840x2160x3 at 1024x1024 tiles (BASELINE config 4), lossless53
+              and lossy97, three compress_distributed and three
+              decompress_distributed requests each: streams held to
+              REF_SHA256["dist53 ..."/"dist97 ..."], 5/3 decodes equal to the
+              input, 9/7 decodes to REF_MD5; then make_sharded_transform on
+              the 4K tile batch (eight 1024x960 tiles), equal to the
+              unsharded K-a + K-b; every kernel of the path, K-w included,
+              must launch
+     e2e_frames  compress_frames of four 3840x2160x3 frames (lossy97,
+              natural_image seeds 3-6), twice: frame 0 with the pinned
+              "97 ..." digest, the others equal to the port's compress
+     slice_strip  a 4096x4096 plane, 5 levels, over the mesh: the 5/3
+              strip through the layout bridge equal to K-b unsharded and
+              its inverse the input, the 9/7 strip equal to K-k unsharded
+              on the float32 bits; the bridged 5/3 coefficients through
+              encode_tile_to_blob inside the port's compress stream of the
+              plane; ms of forward, bridge and inverse, halo copies; K-u,
+              K-v and the horizontal halves must launch
  10. corpus   every .j2k of tests/corpus/streams decoded on the card with
               the manifest's decode parameters: identical to grok_tpu's
               decode (CORPUS_REF_MD5), or refused by name; none may differ
@@ -146,6 +181,11 @@ REF_SHA256 = {
                         "9ad1fc85850d30df105d0484c6b32334c357afc33a3c1f6d10b4b5928e1a3b38"),
     "roi_ht 2160x3840x3": (23759587,
                            "1fb0ed0a5dd90542253c19e7e77b67bc8fdc2257bb8ab0ec76aeda3d03348455"),
+    # under "dist53 ..." and "dist97 ...", with DIST53 and DIST97 (1024x1024 tiles)
+    "dist53 2160x3840x3": (18526634,
+                           "9dc7e7cc3f979e9b00705b2092b3c8dcd29139618d5cc54cd5de6932a36cac68"),
+    "dist97 2160x3840x3": (10622856,
+                           "f42ed47cd43db0f86423586f80ef71129633d3015b35d5bfd59ec077012c0cbe"),
 }
 PART1_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ebcot_symbols", "mq_pack")
 PART1_DEC_KERNELS = ("ebcot_decode", "dwt53_inv_level", "rct_inv_dc_clip")
@@ -194,6 +234,25 @@ MCT_KERNELS = ("dc_mct_fwd", "dwt97_fwd_level", "quant_deadzone", "ebcot_symbols
                "ebcot_decode", "dequant_midbin", "dwt97_inv_level", "mct_inv_round_clip")
 ROI_KERNELS = PART1_KERNELS + ("roi_up",) + PART1_DEC_KERNELS
 ROI_HT_KERNELS = HT_KERNELS + ("roi_up", "roi_down")
+# K6: the distributed encode and decode at BASELINE config 4's tile size,
+# lossless53 and lossy97 (e2e_dist; digests under "dist53 ..." and "dist97
+# ..."); the frame batch of e2e_frames (natural_image seeds 3-6, lossy97);
+# the strip wavelet's plane and levels (slice_strip); the slice_dist cases
+DIST53 = dict(num_resolutions=6, tile_size=(1024, 1024))
+DIST97 = dict(DIST53, irreversible=True)
+FRAME_SEEDS = (3, 4, 5, 6)
+STRIP, STRIP_LEVELS = 4096, 5
+# the 4K tile batch of make_sharded_transform: 8 tiles of 1024 x 960 from
+# the top 2048 rows of the 4K image
+TILE_BATCH = (2, 4, 1024, 960)
+DIST_CASES = {
+    f"{t}{'_ht' if ht else ''}_t{ts}": dict(num_resolutions=6, tile_size=(ts, ts), ht=ht,
+                                             irreversible=t == "97")
+    for t in ("53", "97") for ht in (False, True) for ts in (64, 37)}
+STRIP_KERNELS = ("strip53_step", "strip97_step", "strip_pack_v", "strip_unpack_v",
+                 "dwt53_fwd_h", "dwt53_inv_h", "dwt97_fwd_h", "dwt97_inv_h")
+DIST_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ebcot_symbols", "mq_pack", "ebcot_decode",
+                "dwt53_inv_level", "rct_inv_dc_clip", "blk_stats")
 # md5 of grok_tpu.decompress's planes (golden_md5) of the "97 ...", "1bpp
 # ..." and "<case> ..." streams above, the last decoded with max_layers 0
 # and 1 ("... L0", "... L1"); tests/test_torch_chip_digest.py holds the
@@ -224,6 +283,7 @@ REF_MD5 = {
     "roi97 256x256x3 L0": "52c45ec13e054cc9e512d0b6675218f0",
     "roi97 256x256x3 L1": "040097d724f7a7c7df08cf0ac5aebf4f",
     "mct 2160x3840x3": "c8c9387318a387481a3bf328ccd99f61",
+    "dist97 2160x3840x3": "f4622b4cd47a4bad4aa0e94392ee31e0",
 }
 # golden_md5 of grok_tpu.decompress's planes for every corpus stream the
 # port decodes, with the manifest's decode parameters (anchored by
@@ -334,9 +394,9 @@ CORPUS_REF_MD5 = {
 CUTS = (0.1, 0.3, 0.6, 0.9, 0.99)
 
 
-def natural_image(h, w, nc=3):
-    """bench.py's synthetic content (numpy, seed 3)."""
-    r = np.random.default_rng(3)
+def natural_image(h, w, nc=3, seed=3):
+    """bench.py's synthetic content (numpy, seed 3 unless told)."""
+    r = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     base = 0.5 + 0.3 * np.sin(xx / 23) * np.cos(yy / 31)
     tex = r.standard_normal((h, w)) * 0.02
@@ -429,6 +489,251 @@ def _device(torch):
     return torch.device("cuda", 0)
 
 
+def tile_batch(arr):
+    """The 4K tile batch of make_sharded_transform, int32 [8, 3, 1024, 960]."""
+    ty, tx, th, tw = TILE_BATCH
+    return np.stack([arr[r * th:(r + 1) * th, c * tw:(c + 1) * tw].transpose(2, 0, 1)
+                     for r in range(ty) for c in range(tx)]).astype(np.int32)
+
+
+def k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap) -> dict[str, int]:
+    """slice_dist, e2e_dist, e2e_frames and slice_strip over ``mesh``;
+    returns the main-path launches of K-w, K-u, K-v and the horizontal
+    halves."""
+    import grok_tpu_torch as gt
+    from grok_tpu_torch.codestream.compress import build_siz, build_tcp, encode_tile_to_blob
+    from grok_tpu_torch.core.rect import Rect
+    from grok_tpu_torch.ops import transform as tr
+    from grok_tpu_torch.parallel import mesh as pm
+
+    def same_bits(a, b):
+        a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (a, b))
+        return torch.equal(a, b)
+
+    _, _, th, tw = TILE_BATCH
+    # ---- 8d. K6 over the mesh. slice_dist: 256x256x3 through the three
+    # distributed entry points, against the port's own compress and
+    # decompress on the card, at 64x64 tiles and the odd-parity 37x37
+    gt.reset_launch_counts()
+    small_img = natural_image(256, 256, 3)
+    frames_small = [natural_image(256, 256, 3, seed=s) for s in (3, 4, 5)]
+    for name, kw in DIST_CASES.items():
+        t0 = time.perf_counter()
+        one = gt.compress(gt.Image.from_array(small_img), gt.CompressParams(**kw))
+        t1 = time.perf_counter()
+        dist = gt.compress_distributed(gt.Image.from_array(small_img), gt.CompressParams(**kw),
+                                       mesh=mesh)
+        t2 = time.perf_counter()
+        d_one = gt.decompress(one)
+        d_dist = gt.decompress_distributed(one, mesh=mesh)
+        t3 = time.perf_counter()
+        dec_same = all(np.array_equal(a.data, b.data)
+                       for a, b in zip(d_one.components, d_dist.components))
+        frames_same = None
+        if kw["tile_size"] == (64, 64):  # frames are single-tile: once per coding
+            fkw = dict(kw, tile_size=None)
+            outs = gt.compress_frames([gt.Image.from_array(a) for a in frames_small],
+                                      gt.CompressParams(**fkw), mesh=mesh)
+            frames_same = all(o == gt.compress(gt.Image.from_array(a), gt.CompressParams(**fkw))
+                              for o, a in zip(outs, frames_small))
+        emit({"phase": "slice_dist", "case": name, "params": kw, "image": "256x256x3",
+              "identical": dist == one, "decode_equal": dec_same, "frames_identical": frames_same,
+              "bytes": len(one), "compress_ms": (t1 - t0) * 1e3, "dist_ms": (t2 - t1) * 1e3,
+              "decode_ms": (t3 - t2) * 1e3})
+        if dist != one or not dec_same or frames_same is False:
+            raise AssertionError(f"slice_dist {name}: a distributed stream or decode differs "
+                                 "from the port's compress or decompress")
+    sd_counts = gt.launch_counts()
+    emit({"phase": "slice_dist_launches", "launches": sd_counts})
+
+    lap("slice_dist")
+
+    # e2e_dist: the 4K image at BASELINE config 4's tile size through
+    # compress_distributed and decompress_distributed, three requests each,
+    # lossless53 and lossy97; then make_sharded_transform on the 4K tile
+    # batch (K-w's launches)
+    gt.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for tag, kw in (("dist53", DIST53), ("dist97", DIST97)):
+        streams = []
+        for i in range(3):
+            stage = {}
+            img = gt.Image.from_array(arr)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gt.compress_distributed(img, gt.CompressParams(**kw), mesh=mesh, stage_ms=stage)
+            torch.cuda.synchronize()
+            e2e = (time.perf_counter() - t0) * 1e3
+            sha, ref_ok = digest_ok(out, f"{tag} {H}x{W}x{NC}")
+            emit({"phase": "e2e_dist", "case": tag, "op": "encode", "request": i, "e2e_ms": e2e,
+                  "mp_per_s": W * H / 1e6 / (e2e / 1e3), "bytes": len(out), "sha256": sha,
+                  "reference_digest": ref_ok, "stage_ms": stage})
+            if not ref_ok:
+                raise AssertionError(f"e2e_dist {tag} request {i}: not grok_tpu's stream")
+            streams.append(out)
+        for i, stream in enumerate(streams):
+            stage = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = gt.decompress_distributed(stream, mesh=mesh, stage_ms=stage)
+            torch.cuda.synchronize()
+            e2e = (time.perf_counter() - t0) * 1e3
+            planes_out = [c.data for c in back.components]
+            if tag == "dist97":
+                md5 = golden_md5(planes_out)
+                ok, check = md5 == REF_MD5[f"{tag} {H}x{W}x{NC}"], {"decode_md5": md5}
+            else:
+                ok = all(np.array_equal(a, arr[:, :, k]) for k, a in enumerate(planes_out))
+                check = {"exact": ok}
+            emit({"phase": "e2e_dist", "case": tag, "op": "decode", "request": i, "e2e_ms": e2e,
+                  "mp_per_s": W * H / 1e6 / (e2e / 1e3), **check, "stage_ms": stage})
+            if not ok:
+                raise AssertionError(f"e2e_dist {tag} decode {i}: not grok_tpu's decode")
+        del streams
+    t0 = time.perf_counter()
+    packed8, bmax8, dist8 = gt.make_sharded_transform(mesh, 5)(tiles8)
+    torch.cuda.synchronize()
+    st_ms = (time.perf_counter() - t0) * 1e3
+    rect8 = Rect(0, 0, tw, th)
+    one8 = [torch.stack(tr.forward_transform(
+        [torch.from_numpy(np.ascontiguousarray(t[c])).to(dev) for c in range(3)],
+        [rect8] * 3, [5] * 3, [128] * 3, True)) for t in tiles8]
+    st_ok = (torch.equal(packed8, torch.stack(one8))
+             and float(dist8) == float(np.float32(
+                 sum(int((p.to(torch.int64) ** 2).sum()) for p in one8))))
+    e2e_dist_counts = gt.launch_counts()
+    emit({"phase": "e2e_dist_sharded_transform", "batch": list(tiles8.shape),
+          "equal_to_unsharded": st_ok, "dist": float(dist8), "ms": st_ms,
+          "blk_max_max": int(bmax8.max())})
+    emit({"phase": "e2e_dist_launches", "image": f"{W}x{H}x{NC}", "requests": 3,
+          "launches": e2e_dist_counts, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not st_ok:
+        raise AssertionError("make_sharded_transform differs from the unsharded transform")
+    if any(e2e_dist_counts[k] <= 0 for k in DIST_KERNELS + K97_KERNELS):
+        raise AssertionError(f"a kernel of the distributed path never launched: {e2e_dist_counts}")
+    got = {"blk_stats": e2e_dist_counts["blk_stats"]}
+    del packed8, one8
+
+    lap("e2e_dist")
+
+    # e2e_frames: compress_frames of four 4K frames (lossy97), frame 0 the
+    # pinned 4K lossy97 stream, the others the port's compress of each
+    gt.reset_launch_counts()
+    frames = [arr] + [natural_image(H, W, NC, seed=s) for s in FRAME_SEEDS[1:]]
+    batch_ms = []
+    for rep in range(2):
+        stage = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = gt.compress_frames([gt.Image.from_array(a) for a in frames],
+                                  gt.CompressParams(**P97), mesh=mesh, stage_ms=stage)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        emit({"phase": "e2e_frames", "rep": rep, "frames": len(frames), "batch_ms": batch_ms[-1],
+              "mp_per_s": len(frames) * W * H / 1e6 / (batch_ms[-1] / 1e3), "stage_ms": stage})
+    sha0, ok0 = digest_ok(outs[0], f"97 {H}x{W}x{NC}")
+    same = [o == gt.compress(gt.Image.from_array(a), gt.CompressParams(**P97))
+            for o, a in zip(outs[1:], frames[1:])]
+    emit({"phase": "e2e_frames_check", "frame0_sha256": sha0, "frame0_reference_digest": ok0,
+          "others_equal_compress": same, "launches": gt.launch_counts()})
+    if not ok0 or not all(same):
+        raise AssertionError("e2e_frames: a frame's stream is not the one-shot stream")
+    del frames, outs
+
+    lap("e2e_frames")
+
+    # slice_strip: the 4096x4096 plane over the mesh, 5 levels; 5/3 through
+    # the bridge equal to K-b unsharded and back exactly, 9/7 equal to K-k
+    # unsharded on the float32 bits; the bridged 5/3 coefficients of the
+    # one-component image encoded by encode_tile_to_blob inside the port's
+    # compress of that image
+    gt.reset_launch_counts()
+    pm.reset_halo_copies()
+    strip = {}
+    for irrev in (False, True):
+        x = torch.from_numpy(x_strip).to(dev).to(torch.float32 if irrev else torch.int32)
+        fwd, inv = gt.make_sharded_strip_dwt(mesh, STRIP_LEVELS, irreversible=irrev)
+        shards = pm.split_rows(x, mesh, x.dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = pm.sharded_dwt97_forward(shards, STRIP_LEVELS) if irrev else \
+            pm.sharded_dwt53_forward(shards, STRIP_LEVELS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bridged = pm.strip_to_mallat(pm.join_rows(shards), len(mesh), STRIP_LEVELS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        back = pm.join_rows(inv(shards))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ref = x.clone()
+        for lvl in range(STRIP_LEVELS):
+            (tr.dwt97_fwd_level if irrev else tr.dwt53_fwd_level)(ref, STRIP >> lvl,
+                                                                  STRIP >> lvl, 0, 0)
+        tag = "97" if irrev else "53"
+        fwd_same = same_bits(bridged, ref)
+        for lvl in range(STRIP_LEVELS, 0, -1):
+            (tr.dwt97_inv_level if irrev else tr.dwt53_inv_level)(
+                ref, STRIP >> (lvl - 1), STRIP >> (lvl - 1), 0, 0)
+        strip[tag] = dict(forward_ms=(t1 - t0) * 1e3, bridge_ms=(t2 - t1) * 1e3,
+                          inverse_ms=(t3 - t2) * 1e3, equal_unsharded=fwd_same,
+                          inverse_equal_unsharded=same_bits(back, ref),
+                          inverse_max_abs_err=float((back.double() - x.double()).abs().max()))
+        if not irrev:
+            coeffs53 = bridged
+        del shards, back, ref
+    one_img = gt.Image.from_array(x_strip + 128)
+    one_img.finalize()
+    p6 = gt.CompressParams(num_resolutions=STRIP_LEVELS + 1)
+    t0 = time.perf_counter()
+    blob = encode_tile_to_blob(build_siz(one_img, p6), build_tcp(one_img, p6), 0, None,
+                               coeffs=[coeffs53])
+    t1 = time.perf_counter()
+    strip_stream = gt.compress(gt.Image.from_array(x_strip + 128), p6)
+    strip_counts = gt.launch_counts()
+    emit({"phase": "slice_strip", "plane": f"{STRIP}x{STRIP}", "levels": STRIP_LEVELS,
+          "mesh": [str(d) for d in mesh.devices], "virtual": mesh.virtual, **strip,
+          "halo_copies": pm.halo_copies(), "blob_bytes": len(blob),
+          "blob_in_compress_stream": blob in strip_stream, "encode_ms": (t1 - t0) * 1e3,
+          "launches": strip_counts})
+    # the 9/7 round trip within the reference's own bound
+    # (tests/test_parallel.py's 1e-3); 5/3 exact
+    if not (all(strip[t]["equal_unsharded"] and strip[t]["inverse_equal_unsharded"]
+                for t in ("53", "97"))
+            and strip["53"]["inverse_max_abs_err"] == 0
+            and strip["97"]["inverse_max_abs_err"] < 1e-3 and blob in strip_stream):
+        raise AssertionError(f"slice_strip: {strip}, blob in stream {blob in strip_stream}")
+    if any(strip_counts[k] <= 0 for k in STRIP_KERNELS):
+        raise AssertionError(f"a kernel of the strip path never launched: {strip_counts}")
+    got.update({k: strip_counts[k] for k in STRIP_KERNELS})
+    del coeffs53, blob, strip_stream
+
+    lap("slice_strip")
+    return got
+
+
+def cards_main(torch, gt, mesh, dev, smi, kind, lap, walls) -> int:
+    """``--cards``: the K6 phases alone, over a mesh of every card (two or
+    more) and then over a virtual mesh of as many shards on the first card,
+    in one run, so the two compare on the same machine."""
+    if not mesh.virtual and len(mesh) >= 2:
+        arr = natural_image(H, W, NC)
+        x_strip = natural_image(STRIP, STRIP, 1) - 128
+        tiles8 = tile_batch(arr)
+        for m in (mesh, gt.make_mesh(len(mesh), device=dev)):
+            emit({"phase": "cards_mesh", "devices": [str(d) for d in m.devices],
+                  "virtual": m.virtual})
+            got = k6_phases(torch, m, dev, arr, x_strip, tiles8, lap)
+            emit({"phase": "cards_launches", "virtual": m.virtual, "launches": got})
+        emit({"phase": "walls", "seconds": walls, "total": sum(walls.values())})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    print("chip_smoke --cards: needs two or more CUDA cards", file=sys.stderr)
+    return 2
+
+
 def main() -> int:
     import torch
 
@@ -443,6 +748,9 @@ def main() -> int:
     from grok_tpu_torch.t1 import ht_cuda as hc
     from grok_tpu_torch.t1.ebcot import lane_numbps
     from grok_tpu_torch.t2 import rate_control as rc
+    from grok_tpu_torch.core.rect import Rect
+    from grok_tpu_torch.parallel import mesh as pm
+    from grok_tpu_torch.parallel import ops as k6
     from grok_tpu_torch.tile.tile_processor import TileProcessor, _repair_pass_rates
 
     dev = _device(torch)
@@ -462,6 +770,13 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    # the mesh of the K6 phases: every card when there are two or more,
+    # else four shards on the one card (a virtual mesh: its halo copies and
+    # kernels run inside one card)
+    n_cards = torch.cuda.device_count()
+    mesh = gt.make_mesh() if n_cards >= 2 else gt.make_mesh(4, device=dev)
+    emit({"phase": "mesh", "devices": [str(d) for d in mesh.devices], "virtual": mesh.virtual})
+
     lap("device")
 
     # ---- 2. build
@@ -475,6 +790,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(build_s, 3), "ptxas": regs})
 
     lap("build")
+
+    if "--cards" in sys.argv[1:]:
+        return cards_main(torch, gt, mesh, dev, smi, kind, lap, walls)
 
     # ---- 3. kernels
     emit({"phase": "kernels", "path_kernels": [
@@ -976,6 +1294,93 @@ def main() -> int:
             shape=f"{H}x{W} int32 packed 5/3 plane, shift 4, in place")
     del roi_in, up_k, up_p, down_k, down_p, roi_scratch
 
+    # K6 on the card: K-u, K-v and the horizontal halves on the level-0
+    # sub-block of shard 1 of the 4096x4096 strip (its halo the neighbour's
+    # row), K-w on one shard's slice of the 4K tile batch's packed
+    # coefficients (the shape the path launches it at); each against its
+    # plain version on the card, exactly (floats on their bits), one launch
+    # timed
+    x_strip = natural_image(STRIP, STRIP, 1) - 128
+    sh_i = pm.split_rows(x_strip, mesh)
+    sh_f = pm.split_rows(x_strip, mesh, torch.float32)
+    k_sub = 1 % len(mesh)
+    sub_h, sub_w = sh_i[k_sub].shape
+    nxt = sh_i[(k_sub + 1) % len(mesh)][0].clone()
+    nxt_f = sh_f[(k_sub + 1) % len(mesh)][0].clone()
+    sub_px = sub_h * sub_w
+
+    def k6_check(name, fn, plain, x, args, bytes_, ops, op_rate=INT32_OPS_PER_S, lib=None,
+                 shape=""):
+        got, ref = x.clone(), x.clone()
+        fn(got, *args)
+        plain(ref, *args)
+        err = 0 if same_bits(got, ref) else 1
+        scratch = x.clone()
+        stats[name] = dict(
+            max_abs_err=err, ms=cuda_ms(torch, lambda: fn(scratch, *args)),
+            plain_ms=cuda_ms(torch, lambda: plain(scratch, *args)), bytes=bytes_, ops=ops,
+            op_rate=op_rate, library_ms=None if lib is None else cuda_ms(torch, lib),
+            shape=shape)
+
+    where = f"level-0 sub-block {sub_h}x{sub_w} of shard {k_sub} of the {STRIP}x{STRIP} strip"
+    k6_check("strip53_step", k6.strip53_step, k6.strip53_step_plain, sh_i[k_sub],
+             (sub_h, sub_w, nxt, False, False), 6 * sub_px, 3 * sub_px // 2,
+             shape=f"int32 predict with a halo, {where}")
+    for update, inv in ((False, True), (True, False), (True, True)):  # the other steps
+        a, b = sh_i[k_sub].clone(), sh_i[k_sub].clone()
+        k6.strip53_step(a, sub_h, sub_w, nxt, update, inv)
+        k6.strip53_step_plain(b, sub_h, sub_w, nxt, update, inv)
+        stats["strip53_step"]["max_abs_err"] |= int(not torch.equal(a, b))
+    k6_check("strip97_step", k6.strip97_step, k6.strip97_step_plain, sh_f[k_sub],
+             (sub_h, sub_w, nxt_f, False, k6.STEPS_97[0][1], False), 6 * sub_px,
+             3 * sub_px // 2, op_rate=FP32_OPS_PER_S,
+             shape=f"float32 ALPHA predict with a halo, {where}")
+    for update, coef in k6.STEPS_97[1:]:
+        for inv in (False, True):
+            a, b = sh_f[k_sub].clone(), sh_f[k_sub].clone()
+            k6.strip97_step(a, sub_h, sub_w, None, update, coef, inv)
+            k6.strip97_step_plain(b, sub_h, sub_w, None, update, coef, inv)
+            stats["strip97_step"]["max_abs_err"] |= int(not same_bits(a, b))
+    perm = torch.cat([torch.arange(0, sub_h, 2), torch.arange(1, sub_h, 2)]).to(dev)
+    unperm = torch.argsort(perm)
+    lib_src = sh_i[k_sub]
+    k6_check("strip_pack_v", k6.strip_pack_v, k6.strip_pack_v_plain, sh_i[k_sub],
+             (sub_h, sub_w), 8 * sub_px, 0, lib=lambda: lib_src.index_select(0, perm),
+             shape=f"int32 (5/3), {where}; library: index_select of the row permutation")
+    k6_check("strip_unpack_v", k6.strip_unpack_v, k6.strip_unpack_v_plain, sh_i[k_sub],
+             (sub_h, sub_w), 8 * sub_px, 0, lib=lambda: lib_src.index_select(0, unperm),
+             shape=f"int32 (5/3), {where}; library: index_select of the row permutation")
+    for fn, plain in ((k6.strip_pack_v, k6.strip_pack_v_plain),
+                      (k6.strip_unpack_v, k6.strip_unpack_v_plain)):
+        a, b = sh_f[k_sub].clone(), sh_f[k_sub].clone()  # the 9/7 scaling
+        fn(a, sub_h, sub_w)
+        plain(b, sub_h, sub_w)
+        stats[fn.__name__]["max_abs_err"] |= int(not same_bits(a, b))
+    for name, fn, plain, x, ops, rate in (
+            ("dwt53_fwd_h", tr.dwt53_fwd_h, tr.dwt53_fwd_h_plain, sh_i[k_sub], 4, INT32_OPS_PER_S),
+            ("dwt53_inv_h", tr.dwt53_inv_h, tr.dwt53_inv_h_plain, sh_i[k_sub], 4, INT32_OPS_PER_S),
+            ("dwt97_fwd_h", tr.dwt97_fwd_h, tr.dwt97_fwd_h_plain, sh_f[k_sub], 13, FP32_OPS_PER_S),
+            ("dwt97_inv_h", tr.dwt97_inv_h, tr.dwt97_inv_h_plain, sh_f[k_sub], 13, FP32_OPS_PER_S)):
+        k6_check(name, fn, plain, x, (sub_h, sub_w, 0), 8 * sub_px, ops * sub_px, rate,
+                 shape=f"parity 0, {where}")
+    del sh_i, sh_f
+    # K-w at the shape make_sharded_transform launches it: one shard's slice
+    # of the 4K tile batch's packed coefficients
+    tiles8 = tile_batch(arr)
+    packed8, _, _ = gt.make_sharded_transform(mesh, 5)(tiles8)
+    shard8 = packed8[:len(tiles8) // len(mesh)].contiguous()
+    del packed8
+    bm_k, sum_k = k6.blk_stats(shard8)
+    bm_p, sum_p = k6.blk_stats_plain(shard8)
+    stats["blk_stats"] = dict(
+        max_abs_err=int((bm_k - bm_p).abs().max()) + (0 if sum_k.item() == sum_p.item() else 1),
+        ms=cuda_ms(torch, lambda: k6.blk_stats(shard8)),
+        plain_ms=cuda_ms(torch, lambda: k6.blk_stats_plain(shard8)),
+        bytes=4 * shard8.numel() + 4 * bm_k.numel() + 8, ops=2 * shard8.numel(),
+        op_rate=FP64_OPS_PER_S, library_ms=None,
+        shape=f"int32 {list(shard8.shape)} (one shard of the 4K tile batch, 5 levels)")
+    del shard8, bm_k, bm_p
+
     for name, s in stats.items():
         bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = s["ops"] / s.pop("op_rate", INT32_OPS_PER_S) * 1e3
@@ -1368,6 +1773,8 @@ def main() -> int:
     counts["roi_down"] = e2e_phase("e2e_roi_ht", PROI_HT, f"roi_ht {H}x{W}x{NC}",
                                    ROI_HT_KERNELS)["roi_down"]
     lap("e2e_roi_ht")
+
+    counts.update(k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap))
 
     # ---- 9. truncated streams: the card's planes equal the plain path's
     cuts = cut_streams(gt)

@@ -24,7 +24,15 @@ dependency.
 
 ``compress`` and ``decompress`` run on the current CUDA device;
 ``device="cpu"`` runs the kernels' plain versions instead (what the CPU
-tests do).
+tests do). The multi-device layer (``parallel/``, K6) deals tiles or frames
+to the shards of a mesh, a list of devices (``make_mesh()``: every card;
+``make_mesh(4, device="cuda:0")``: four shards on one card;
+``make_mesh(8, device="cpu")``: the plain versions):
+``compress_distributed``, ``decompress_distributed`` and
+``compress_frames`` give ``compress``'s streams and ``decompress``'s
+planes; ``make_sharded_strip_dwt`` is the Y-sharded strip wavelet with
+one-row halos and ``make_sharded_transform`` the tile-parallel transform
+with block statistics.
 """
 
 from .codestream.compress import compress
@@ -34,9 +42,12 @@ from .core.image import Component, Image
 from .core.params import (ColorSpace, CompressParams, DecompressParams, ProgressionOrder,
                           QuantStyle)
 from .kernels import launch_counts, reset_launch_counts
+from .parallel import (Mesh, compress_distributed, compress_frames, decompress_distributed,
+                       make_mesh, make_sharded_strip_dwt, make_sharded_transform)
 
 __all__ = [
     "ColorSpace",
+    "Mesh",
     "Component",
     "CompressParams",
     "DecompressParams",
@@ -46,7 +57,13 @@ __all__ = [
     "QuantStyle",
     "UnsupportedFeatureError",
     "compress",
+    "compress_distributed",
+    "compress_frames",
     "decompress",
+    "decompress_distributed",
     "launch_counts",
+    "make_mesh",
+    "make_sharded_strip_dwt",
+    "make_sharded_transform",
     "reset_launch_counts",
 ]

@@ -24,6 +24,7 @@ from ..core.image import Image
 from ..core.params import CBLK_HT, CompressParams, QuantStyle
 from ..core.rect import ceil_div
 from ..core.timing import StageClock
+from ..kernels import on_device
 from ..ops.transform import MCT_MAX_COMPS, ROI_MAX_SHIFT
 from ..tile.tile_processor import TileProcessor
 from . import markers as mk
@@ -173,13 +174,21 @@ def _extract_tile(image: Image, siz: Siz, tile_index: int) -> list[np.ndarray]:
     return arrays
 
 
-def encode_tile_to_blob(siz: Siz, tcp: Tcp, ti: int, comp_arrays: list[np.ndarray],
-                        device: torch.device, clock: StageClock | None = None,
-                        params: CompressParams | None = None) -> bytes:
+def encode_tile_to_blob(siz: Siz, tcp: Tcp, ti: int, comp_arrays: list[np.ndarray] | None,
+                        device: torch.device | None = None, clock: StageClock | None = None,
+                        params: CompressParams | None = None,
+                        coeffs: list[torch.Tensor] | None = None) -> bytes:
     """Encode one tile into its SOT..body blob (one tile-part); ``params``
-    carry the rate or quality targets."""
+    carry the rate or quality targets. With ``coeffs`` (the tile's packed
+    int32 coefficient planes, transformed elsewhere: a shard of the mesh,
+    or the sharded strip through its layout bridge) the tile is
+    entropy-coded on the coefficients' device and ``comp_arrays`` is not
+    read."""
+    if coeffs is not None:
+        device = coeffs[0].device
     tp = TileProcessor(siz, tcp, ti, device, params)
-    body = tp.compress(comp_arrays, clock)
+    with on_device(tp.device):
+        body = tp.compress(comp_arrays, clock, coeffs=coeffs)
     psot = 12 + 2 + len(body)
     return mk.write_sot(ti, psot, 0, 1) + mk._u16(mk.SOD) + body
 
@@ -197,12 +206,19 @@ def resolve_device(device, entry: str = "compress") -> torch.device:
 
 
 def compress(image: Image, params: CompressParams | None = None, device=None,
-             stage_ms: dict[str, float] | None = None) -> bytes:
+             stage_ms: dict[str, float] | None = None, tile_coeff_fn=None) -> bytes:
     """Encode an Image to a raw .j2k codestream on ``device`` (default: the
     current CUDA device). With ``stage_ms`` (a dict) the device is
     synchronised between stages and their milliseconds are added there,
     with the count of rate control's packet simulations under
-    ``pcrd_simulations``."""
+    ``pcrd_simulations``.
+
+    ``tile_coeff_fn(tile_index)`` may supply a tile's packed coefficient
+    planes, transformed on a shard of a mesh (the distributed encode,
+    grok_tpu/codestream/compress.py:156-222); that tile is entropy-coded
+    on the planes' device, and a tile it returns None for takes the
+    ordinary path on ``device``. T2 and the assembly stay on the host, in
+    tile order."""
     params = params or CompressParams()
     if params.mct_matrix is not None:
         # the Part-2 MCT takes the irreversible path (grok_tpu sets the
@@ -227,7 +243,9 @@ def compress(image: Image, params: CompressParams | None = None, device=None,
     out = write_main_header(siz, tcp, params)
     clock.mark("markers")
     for ti in range(siz.num_tiles):
-        out += encode_tile_to_blob(siz, tcp, ti, _extract_tile(image, siz, ti), dev, clock,
-                                   params)
+        coeffs = tile_coeff_fn(ti) if tile_coeff_fn is not None else None
+        out += encode_tile_to_blob(siz, tcp, ti,
+                                   None if coeffs is not None else _extract_tile(image, siz, ti),
+                                   dev, clock, params, coeffs=coeffs)
     out += mk._u16(mk.EOC)
     return bytes(out)

@@ -28,6 +28,7 @@ from ..core.image import Component, Image
 from ..core.params import CBLK_HT, ColorSpace, DecompressParams
 from ..core.rect import ceil_div
 from ..core.timing import StageClock
+from ..kernels import on_device
 from ..ops.transform import ROI_MAX_SHIFT
 from ..tile.tile_processor import TileProcessor
 from . import markers as mk
@@ -183,6 +184,64 @@ def _paste_tile(img: Image, header: HeaderInfo, tile_index: int, arrays) -> None
             c.data[dy0:dy0 + h, dx0:dx0 + w] = a[sy0:sy0 + h, sx0:sx0 + w]
 
 
+class Decoder:
+    """One codestream: the main header and the tile-part index are parsed
+    once, then each tile's headers and body on demand (the reference's
+    Decoder, grok_tpu/codestream/decompress.py:42; _parse_tile_headers
+    :99; decompress :256-320). Runs on ``device`` (default: the current
+    CUDA device)."""
+
+    def __init__(self, data, params: DecompressParams | None = None, device=None,
+                 stage_ms: dict[str, float] | None = None):
+        self.params = params or DecompressParams()
+        check_params(self.params)
+        self.device = resolve_device(device, "decompress")
+        self.clock = StageClock(self.device, stage_ms)
+        self.data = memoryview(bytes(data))
+        self.header, first_sot = mk.parse_main_header(self.data)
+        check_decodable(self.header.default_tcp)
+        self.spans = index_tile_parts(self.data, first_sot, self.header.siz.num_tiles)
+
+    def _parse_tile_headers(self, ti: int) -> tuple[Tcp, bytes]:
+        """A tile's coding parameters and body; refuses by name a coding
+        style outside the decode slices."""
+        tcp, body = read_tile_headers(self.data, self.header, self.spans[ti])
+        check_decodable(tcp)
+        return tcp, body
+
+    def decompress(self, tile_arrays_fn=None) -> Image:
+        """Decode every tile into an Image. ``tile_arrays_fn(tile_index)``
+        may supply a tile's per-component sample arrays (the distributed
+        decode's hook, mirroring compress's tile_coeff_fn); a tile it
+        returns None for takes the ordinary path."""
+        siz, clock = self.header.siz, self.clock
+        img = _make_image(self.header)
+        clock.mark("markers")
+        for ti in range(siz.num_tiles):
+            if ti not in self.spans:
+                continue
+            arrays = tile_arrays_fn(ti) if tile_arrays_fn is not None else None
+            if arrays is None:
+                try:
+                    tcp, body = self._parse_tile_headers(ti)
+                    clock.mark("markers")
+                    with on_device(self.device):
+                        planes = TileProcessor(siz, tcp, ti, self.device).decompress(
+                            body, clock, self.params.max_layers)
+                    arrays = [p.cpu().numpy() for p in planes]
+                except UnsupportedFeatureError:
+                    raise  # a feature refused by name is not corruption
+                except (GrokTpuError, ValueError, IndexError, OverflowError):
+                    # corrupt-tile tolerance (grok_tpu/codestream/decompress.py:
+                    # 180-201): a broken tile decodes as an empty one, the DC
+                    # level _make_image filled in. A CUDA launch error is a
+                    # RuntimeError and is never caught.
+                    continue
+            clock.mark("to_host")
+            _paste_tile(img, self.header, ti, arrays)
+        return img
+
+
 def decompress(data, params: DecompressParams | None = None, device=None,
                stage_ms: dict[str, float] | None = None) -> Image:
     """Decode a raw .j2k Part-1 or HTJ2K codestream into an Image on
@@ -190,34 +249,4 @@ def decompress(data, params: DecompressParams | None = None, device=None,
     dict) the device is synchronised between stages and their milliseconds
     are added there: markers, t2, upload, t1_dec (Part-1) or t1_ht_dec
     (HT), scatter, inverse, to_host."""
-    params = params or DecompressParams()
-    check_params(params)
-    dev = resolve_device(device, "decompress")
-    clock = StageClock(dev, stage_ms)
-    data = memoryview(bytes(data))
-    header, first_sot = mk.parse_main_header(data)
-    check_decodable(header.default_tcp)
-    siz = header.siz
-    spans = index_tile_parts(data, first_sot, siz.num_tiles)
-    img = _make_image(header)
-    clock.mark("markers")
-    for ti in range(siz.num_tiles):
-        if ti not in spans:
-            continue
-        try:
-            tcp, body = read_tile_headers(data, header, spans[ti])
-            check_decodable(tcp)
-            clock.mark("markers")
-            planes = TileProcessor(siz, tcp, ti, dev).decompress(body, clock, params.max_layers)
-            arrays = [p.cpu().numpy() for p in planes]
-        except UnsupportedFeatureError:
-            raise  # a feature refused by name is not corruption
-        except (GrokTpuError, ValueError, IndexError, OverflowError):
-            # corrupt-tile tolerance (grok_tpu/codestream/decompress.py:
-            # 180-201): a broken tile decodes as an empty one, the DC level
-            # _make_image filled in. A CUDA launch error is a RuntimeError
-            # and is never caught.
-            continue
-        clock.mark("to_host")
-        _paste_tile(img, header, ti, arrays)
-    return img
+    return Decoder(data, params, device, stage_ms).decompress()

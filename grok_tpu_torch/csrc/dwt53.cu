@@ -88,3 +88,19 @@ extern "C" int dwt53_fwd_level(void* plane, void* tmp, int ld, int h, int w,
                                        ld, h, w, px);
     return (int)cudaGetLastError();
 }
+
+// The horizontal half alone (K6's _fwd53_h_local, grok_tpu/parallel/
+// mesh.py:118, with the origin parity px): the sub-block is copied to the
+// compact scratch and lifted back into place, as the second pass above.
+extern "C" int dwt53_fwd_h(void* plane, void* tmp, int ld, int h, int w, int px,
+                           void* stream) {
+    if (h <= 0 || w <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    int rc = (int)cudaMemcpy2DAsync(tmp, (size_t)w * 4, plane, (size_t)ld * 4, (size_t)w * 4,
+                                    (size_t)h, cudaMemcpyDeviceToDevice, st);
+    if (rc) return rc;
+    const dim3 block(32, 8);
+    const dim3 grid((w + 31) / 32, (h + 7) / 8);
+    dwt53_horz<<<grid, block, 0, st>>>((const int32_t*)tmp, (int32_t*)plane, ld, h, w, px);
+    return (int)cudaGetLastError();
+}

@@ -83,3 +83,20 @@ extern "C" int dwt53_inv_level(void* plane, void* tmp, int ld, int h, int w,
                                            ld, h, w, py);
     return (int)cudaGetLastError();
 }
+
+// The horizontal half alone (K6's _inv53_h_local, grok_tpu/parallel/
+// mesh.py:130, with the origin parity px): the first pass above into the
+// compact scratch, then the scratch copied back into place.
+extern "C" int dwt53_inv_h(void* plane, void* tmp, int ld, int h, int w, int px,
+                           void* stream) {
+    if (h <= 0 || w <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    const dim3 block(32, 8);
+    const dim3 grid((w + 31) / 32, (h + 7) / 8);
+    dwt53_inv_horz<<<grid, block, 0, st>>>((const int32_t*)plane, (int32_t*)tmp, ld, h, w,
+                                           px);
+    int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    return (int)cudaMemcpy2DAsync(plane, (size_t)ld * 4, tmp, (size_t)w * 4, (size_t)w * 4,
+                                  (size_t)h, cudaMemcpyDeviceToDevice, st);
+}

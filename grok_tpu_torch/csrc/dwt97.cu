@@ -153,3 +153,15 @@ extern "C" int dwt97_inv_level(void* plane, int ld, int h, int w, int py, int px
     if (rc) return rc;
     return run_lines<false>(p, h, w, ld, 1, py, st);
 }
+
+// The horizontal halves alone (K6's _fwd97_h_local and _inv97_h_local,
+// grok_tpu/parallel/mesh.py:207, :229, with the origin parity px).
+extern "C" int dwt97_fwd_h(void* plane, int ld, int h, int w, int px, void* stream) {
+    if (h <= 0 || w <= 0) return 0;
+    return run_lines<true>((float*)plane, w, h, 1, ld, px, (cudaStream_t)stream);
+}
+
+extern "C" int dwt97_inv_h(void* plane, int ld, int h, int w, int px, void* stream) {
+    if (h <= 0 || w <= 0) return 0;
+    return run_lines<false>((float*)plane, w, h, 1, ld, px, (cudaStream_t)stream);
+}

@@ -141,6 +141,39 @@ KERNELS: dict[str, Kernel] = {
                "native/pipeline.cpp:630 (hull_slopes, host C++ of "
                "grok_tpu/t2/rate_control.py:17 hull_effective_slopes)",
                (_P,) * 4 + (_I32,) * 2 + (_P,), FLOAT_FLAGS),
+        # K6: the sharded-strip wavelet and the tile-parallel block statistics
+        Kernel("strip53_step", "strip_dwt.cu",
+               "grok_tpu/parallel/mesh.py:65, :93 (K6: _fwd53_v_sharded, _inv53_v_sharded, "
+               "their lifting steps with the halos of :36, :45)",
+               (_P, _P, _I64, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+        Kernel("strip97_step", "strip_dwt.cu",
+               "grok_tpu/parallel/mesh.py:146, :177 (K6: _fwd97_v_sharded, _inv97_v_sharded, "
+               "their lifting steps with the halos of :36, :45)",
+               (_P, _P, _I64, _I32, _I32, _I32, _F32, _I32, _P), FLOAT_FLAGS),
+        Kernel("strip_pack_v", "strip_dwt.cu",
+               "grok_tpu/parallel/mesh.py:90, :172-174 (K6: the [s | d] packing and 9/7 "
+               "scaling of the sharded forward)",
+               (_P, _P, _I64, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+        Kernel("strip_unpack_v", "strip_dwt.cu",
+               "grok_tpu/parallel/mesh.py:96-98, :112-114, :181-183, :201-203 (K6: the "
+               "unpacking, 9/7 scaling and interleave of the sharded inverse)",
+               (_P, _P, _I64, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+        Kernel("dwt53_fwd_h", "dwt53.cu",
+               "grok_tpu/parallel/mesh.py:118 (K6: _fwd53_h_local)",
+               (_P, _P, _I32, _I32, _I32, _I32, _P)),
+        Kernel("dwt53_inv_h", "dwt53_inv.cu",
+               "grok_tpu/parallel/mesh.py:130 (K6: _inv53_h_local)",
+               (_P, _P, _I32, _I32, _I32, _I32, _P)),
+        Kernel("dwt97_fwd_h", "dwt97.cu",
+               "grok_tpu/parallel/mesh.py:207 (K6: _fwd97_h_local)",
+               (_P, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+        Kernel("dwt97_inv_h", "dwt97.cu",
+               "grok_tpu/parallel/mesh.py:229 (K6: _inv97_h_local)",
+               (_P, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+        Kernel("blk_stats", "blk_stats.cu",
+               "grok_tpu/parallel/mesh.py:475-480 (K6: make_sharded_transform's blk_max and "
+               "its psum of distortion)",
+               (_P, _P, _P, _P, _I32, _I32, _I32, _P)),
     )
 }
 
@@ -231,3 +264,15 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device):
+    """The context in which a kernel launches on ``device``: that card
+    made current (a launch goes to the current card), or nothing for the
+    CPU."""
+    import contextlib
+
+    import torch
+
+    device = torch.device(device)
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

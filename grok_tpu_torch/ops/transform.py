@@ -10,7 +10,9 @@ forward :259, inverse :285), held to grok_tpu's default host path
 (tile/tile_processor.py:280-390 and :1340-1660 over native/pipeline.cpp),
 with the Part-2 MCT (make_forward_fn :70-79, make_inverse_fn :192-197)
 and the ROI maxshift (:103-108, :168-176).
-Fourteen kernels live here, each beside its plain torch version:
+Fourteen kernels live here, each beside its plain torch version, and the
+horizontal halves of K-b, K-g, K-k and K-n alone, which the sharded strip
+wavelet runs (grok_tpu_torch/parallel/mesh.py):
 
 - reversible: K-a ``dc_rct_fwd`` (csrc/dc_rct.cu), K-b ``dwt53_fwd_level``
   (csrc/dwt53.cu), K-g ``dwt53_inv_level`` (csrc/dwt53_inv.cu) and K-h
@@ -151,6 +153,52 @@ def _fwd53_axis(x: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
 def dwt53_fwd_level_plain(plane, h, w, py, px):
     sub = _fwd53_axis(plane[:h, :w], 0, py)
     plane[:h, :w] = _fwd53_axis(sub, 1, px)
+
+
+# ============================================= K-b, K-g: the horizontal half alone
+def _h_level(name: str, plain, plane: torch.Tensor, h: int, w: int, px: int,
+             dtype=torch.int32, scratch: bool = True) -> None:
+    _check_plane(plane, "plane", dtype)
+    if h > plane.shape[0] or w > plane.shape[1]:
+        raise ValueError("level region exceeds the plane")
+    if h == 0 or w == 0:
+        return
+    dev = plane.device
+    if dev.type == "cpu":
+        plain(plane, h, w, px)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if scratch:
+        tmp = torch.empty(h * w, dtype=dtype, device=dev)
+        kernels.KERNELS[name].call(plane.data_ptr(), tmp.data_ptr(), plane.stride(0), h, w, px,
+                                   kernels.stream_ptr(dev))
+    else:
+        if w > MAX_LINE_97:
+            raise UnsupportedFeatureError(
+                f"outside the ported slices: 9/7 lines longer than {MAX_LINE_97} samples")
+        kernels.KERNELS[name].call(plane.data_ptr(), plane.stride(0), h, w, px,
+                                   kernels.stream_ptr(dev))
+
+
+def dwt53_fwd_h(plane: torch.Tensor, h: int, w: int, px: int) -> None:
+    """K-b's horizontal pass alone, in place: each row of the top-left
+    h x w of ``plane`` becomes [low | high] (origin parity px)."""
+    _h_level("dwt53_fwd_h", dwt53_fwd_h_plain, plane, h, w, px)
+
+
+def dwt53_fwd_h_plain(plane, h, w, px):
+    plane[:h, :w] = _fwd53_axis(plane[:h, :w], 1, px)
+
+
+def dwt53_inv_h(plane: torch.Tensor, h: int, w: int, px: int) -> None:
+    """K-g's horizontal pass alone, in place: each [low | high] row of the
+    top-left h x w of ``plane`` back to natural order."""
+    _h_level("dwt53_inv_h", dwt53_inv_h_plain, plane, h, w, px)
+
+
+def dwt53_inv_h_plain(plane, h, w, px):
+    plane[:h, :w] = _inv53_axis(plane[:h, :w], 1, px)
 
 
 # ============================================= the chain
@@ -472,6 +520,24 @@ def _inv97_axis(y: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
 def dwt97_inv_level_plain(plane, h, w, py, px):
     sub = _inv97_axis(plane[:h, :w], 1, px)
     plane[:h, :w] = _inv97_axis(sub, 0, py)
+
+
+def dwt97_fwd_h(plane: torch.Tensor, h: int, w: int, px: int) -> None:
+    """K-k's horizontal pass alone, in place on a float32 plane."""
+    _h_level("dwt97_fwd_h", dwt97_fwd_h_plain, plane, h, w, px, torch.float32, False)
+
+
+def dwt97_fwd_h_plain(plane, h, w, px):
+    plane[:h, :w] = _fwd97_axis(plane[:h, :w], 1, px)
+
+
+def dwt97_inv_h(plane: torch.Tensor, h: int, w: int, px: int) -> None:
+    """K-n's horizontal pass alone, in place on a float32 plane."""
+    _h_level("dwt97_inv_h", dwt97_inv_h_plain, plane, h, w, px, torch.float32, False)
+
+
+def dwt97_inv_h_plain(plane, h, w, px):
+    plane[:h, :w] = _inv97_axis(plane[:h, :w], 1, px)
 
 
 # ============================================= K-l / K-m: band quantization

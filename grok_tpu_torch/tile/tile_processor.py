@@ -150,27 +150,42 @@ class TileProcessor:
             self.geoms.append(g)
 
     # ------------------------------------------------------------ encode
-    def compress(self, comp_arrays: list[np.ndarray],
-                 clock: StageClock | None = None) -> bytes:
-        """comp_arrays: per-component int32 tile data (natural range).
-        Returns the tile body: its packets in progression order."""
+    def compress(self, comp_arrays: list[np.ndarray] | None,
+                 clock: StageClock | None = None,
+                 coeffs: list[torch.Tensor] | None = None) -> bytes:
+        """comp_arrays: per-component int32 tile data (natural range); or
+        ``coeffs``, the tile's packed int32 coefficient planes on this
+        processor's device, transformed elsewhere (a shard of the mesh,
+        the reference's compress_from_coeffs), which skip the upload and
+        the transform. Returns the tile body: its packets in progression
+        order."""
         clock = clock or StageClock(self.device, None)
-        siz, tcp = self.siz, self.tcp
         self._apply_band_quant()
-        planes = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
-                  for a in comp_arrays]
-        clock.mark("upload")
-        dcs = [0 if c.signed else 1 << (c.prec - 1) for c in siz.comps]
-        # the Part-2 encoding matrix in float32, as the host path applies it
-        # (the reference's :327-337)
-        custom = None if tcp.mct != 2 else np.asarray(tcp.mct_enc_matrix, dtype=np.float32)
-        coeffs = forward_transform(
-            planes, [g.rect for g in self.geoms],
-            [t.num_resolutions - 1 for t in tcp.tccps], dcs, self._mct(),
-            self.irreversible, self.band_tables() if self.irreversible else None,
-            rois=self._rois(), custom=custom)
-        clock.mark("transform")
+        if coeffs is None:
+            planes = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
+                      for a in comp_arrays]
+            clock.mark("upload")
+            coeffs = forward_transform(planes, **self.forward_plan())
+            clock.mark("transform")
+        elif any(c.device != self.device or c.dtype != torch.int32 for c in coeffs):
+            raise ValueError(f"tile {self.tile_index}: the coefficients must be int32 planes "
+                             f"on {self.device}")
         return self._entropy_and_t2(coeffs, clock)
+
+    def forward_plan(self) -> dict:
+        """The arguments of ``forward_transform`` besides the planes, for
+        this tile's geometry and coding parameters (band quantization
+        applied): what a shard of the mesh runs for it."""
+        siz, tcp = self.siz, self.tcp
+        return dict(
+            rects=[g.rect for g in self.geoms],
+            num_levels=[t.num_resolutions - 1 for t in tcp.tccps],
+            dcs=[0 if c.signed else 1 << (c.prec - 1) for c in siz.comps],
+            mct=self._mct(), irreversible=self.irreversible,
+            bands=self.band_tables() if self.irreversible else None, rois=self._rois(),
+            # the Part-2 encoding matrix in float32, as the host path applies
+            # it (the reference's :327-337)
+            custom=None if tcp.mct != 2 else np.asarray(tcp.mct_enc_matrix, dtype=np.float32))
 
     @property
     def irreversible(self) -> bool:
@@ -441,12 +456,15 @@ class TileProcessor:
 
     # ------------------------------------------------------------ decode
     def decompress(self, body, clock: StageClock | None = None,
-                   max_layers: int = 0) -> list[torch.Tensor]:
+                   max_layers: int = 0, staging_only: bool = False) -> list[torch.Tensor]:
         """Decode a tile body (its packets) into per-component int32 sample
         planes on the device. ``max_layers`` > 0 keeps the passes of the
         first that many quality layers only (the reference's
         _decompress_t1_objects, :1176-1198: packets of later layers are
-        parsed and dropped, and reading stops after the last wanted one)."""
+        parsed and dropped, and reading stops after the last wanted one).
+        With ``staging_only`` it returns the int32 staging planes before
+        the inverse transform (the reference's :1306, :1415), for
+        ``inverse`` to finish, here or on a shard of the mesh."""
         clock = clock or StageClock(self.device, None)
         siz, tcp = self.siz, self.tcp
         self._apply_band_quant()
@@ -539,7 +557,17 @@ class TileProcessor:
         planes = [flat[int(offsets[c]):int(offsets[c + 1])].view(g.rect.height, g.rect.width)
                   for c, g in enumerate(self.geoms)]
         clock.mark("scatter")
-        comps = siz.comps
+        if staging_only:
+            return planes
+        return self.inverse(planes, clock)
+
+    def inverse(self, planes: list[torch.Tensor],
+                clock: StageClock | None = None) -> list[torch.Tensor]:
+        """The inverse chain of this tile on its staging planes (on their
+        device): the component samples."""
+        clock = clock or StageClock(planes[0].device, None)
+        tcp, comps = self.tcp, self.siz.comps
+        use_ht = bool(tcp.tccps[0].cblk_style & CBLK_HT)
         # HT codeblocks get the ROI downshift on the staging planes (the
         # reference's :1487-1500); K-i already applied it to Part-1 ones
         out_planes = inverse_transform(

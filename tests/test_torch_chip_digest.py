@@ -122,6 +122,35 @@ def test_reference_4k_mct_and_roi_streams_have_the_pinned_digests(name):
             np.testing.assert_array_equal(p, arr[:, :, c])
 
 
+@pytest.mark.parametrize("name", ["dist53", "dist97"])
+def test_reference_4k_tiled_streams_have_the_pinned_digests(name):
+    """e2e_dist (DIST53, DIST97: 1024x1024 tiles) at full size: the streams,
+    the 9/7 stream's decode digest, the 5/3 stream's decode the input."""
+    kw = {"dist53": chip_smoke.DIST53, "dist97": chip_smoke.DIST97}[name]
+    arr = natural_image(chip_smoke.H, chip_smoke.W, chip_smoke.NC)
+    out = grok_tpu.compress(grok_tpu.Image.from_array(arr), grok_tpu.CompressParams(**kw))
+    key = f"{name} {chip_smoke.H}x{chip_smoke.W}x{chip_smoke.NC}"
+    assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
+    planes = [c.data for c in grok_tpu.decompress(out).components]
+    if name == "dist97":
+        assert golden_md5(planes) == chip_smoke.REF_MD5[key]
+    else:
+        assert key not in chip_smoke.REF_MD5
+        for c, p in enumerate(planes):
+            np.testing.assert_array_equal(p, arr[:, :, c])
+
+
+def test_e2e_frames_frame0_is_the_pinned_image():
+    """e2e_frames' frame 0 (seed FRAME_SEEDS[0]) is the 4K image of the
+    pinned "97 ..." stream, and the other seeds make other images."""
+    seeds = chip_smoke.FRAME_SEEDS
+    h, w, nc = chip_smoke.H // 8, chip_smoke.W // 8, chip_smoke.NC
+    assert seeds[0] == 3 and len(set(seeds)) == len(seeds)
+    first = chip_smoke.natural_image(h, w, nc, seed=seeds[0])
+    np.testing.assert_array_equal(first, chip_smoke.natural_image(h, w, nc))
+    assert not np.array_equal(first, chip_smoke.natural_image(h, w, nc, seed=seeds[1]))
+
+
 def test_p1bpp_is_benchs_lossy97_1bpp_row():
     src = (Path(__file__).resolve().parents[1] / "bench.py").read_text()
     assert re.search(r'"lossy97_1bpp": \(\s*gk\.CompressParams\(num_resolutions=6, '

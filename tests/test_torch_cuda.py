@@ -4,12 +4,13 @@ present; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Every comparison is exact: the nine kernels of the lossless paths and
-K-t are integer-only, the six of the 9/7 path (K-j ... K-o) round every
+Every comparison is exact: the nine kernels of the lossless paths, K-t
+and K6's 5/3 steps, packing and block maxima are integer-only, the six of the 9/7 path (K-j ... K-o) round every
 float product and sum on their own, as their plain versions do, and K-r
 and K-s round each fused multiply-add once, as theirs do, so they are
-compared on their float32 bits, and the float64 sums of rate control (K-p,
-K-e's energy, K-q) run in their plain versions' order."""
+compared on their float32 bits (K6's 9/7 steps and horizontal halves too),
+and the float64 sums of rate control (K-p, K-e's energy, K-q) run in their
+plain versions' order; K-w's float64 sum of squares is exact in any order."""
 
 import numpy as np
 import pytest
@@ -798,3 +799,136 @@ def test_mct_roi_on_card_equals_plain_path(cuda, kw):
     else:
         assert counts["roi_up"] >= 1
         assert (counts["roi_down"] > 0) == bool(kw.get("ht"))
+
+
+# ------------------------------------------------------------- K6
+@pytest.mark.parametrize("h,w", [(2, 1), (8, 37), (64, 128), (1024, 4096)])
+@pytest.mark.parametrize("update", [False, True])
+@pytest.mark.parametrize("with_halo", [False, True])
+def test_strip_step_kernels_equal_plain(cuda, h, w, update, with_halo):
+    """K-u, every step of 5/3 and 9/7 forward and inverse, on a sub-block of
+    a wider shard, with and without a halo row."""
+    from grok_tpu_torch.parallel import ops as k6
+
+    rng = np.random.default_rng(h * w + update)
+    ints = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, (h + 2, w + 3)).astype(np.int32))
+    flts = torch.from_numpy((rng.standard_normal((h + 2, w + 3)) * 300).astype(np.float32))
+    for x, fn, plain, extra in (
+            (ints, k6.strip53_step, k6.strip53_step_plain, ()),
+            *[(flts, k6.strip97_step, k6.strip97_step_plain, (c,)) for _, c in k6.STEPS_97]):
+        for inverse in (False, True):
+            halo = x[-1].clone() if with_halo else None
+            ref = x.clone()
+            plain(ref, h, w, halo, update, *extra, inverse)
+            got = x.to(cuda)
+            fn(got, h, w, None if halo is None else halo.to(cuda), update, *extra, inverse)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("h,w", [(2, 1), (10, 37), (1024, 4096)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_strip_pack_kernels_equal_plain(cuda, h, w, dtype):
+    from grok_tpu_torch.parallel import ops as k6
+
+    rng = np.random.default_rng(h + w)
+    x = torch.from_numpy((rng.standard_normal((h + 3, w + 2)) * 1e4).astype(np.float32))
+    x = x.to(torch.int32) if dtype == torch.int32 else x
+    for fn, plain in ((k6.strip_pack_v, k6.strip_pack_v_plain),
+                      (k6.strip_unpack_v, k6.strip_unpack_v_plain)):
+        ref = x.clone()
+        plain(ref, h, w)
+        got = x.to(cuda)
+        fn(got, h, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("h,w,px", [(1, 1, 0), (3, 9, 1), (64, 128, 0), (512, 4096, 0)])
+def test_horizontal_halves_equal_plain(cuda, h, w, px):
+    rng = np.random.default_rng(h * 7 + w)
+    ints = torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, (h + 1, w + 3)).astype(np.int32))
+    flts = torch.from_numpy((rng.standard_normal((h + 1, w + 3)) * 300).astype(np.float32))
+    for x, fn, plain in ((ints, tr.dwt53_fwd_h, tr.dwt53_fwd_h_plain),
+                         (ints, tr.dwt53_inv_h, tr.dwt53_inv_h_plain),
+                         (flts, tr.dwt97_fwd_h, tr.dwt97_fwd_h_plain),
+                         (flts, tr.dwt97_inv_h, tr.dwt97_inv_h_plain)):
+        ref = x.clone()
+        plain(ref, h, w, px)
+        got = x.to(cuda)
+        fn(got, h, w, px)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 64, 64), (3, 3, 128, 192), (8, 3, 1024, 960)])
+def test_blk_stats_kernel_equals_plain(cuda, shape):
+    from grok_tpu_torch.parallel import ops as k6
+
+    rng = np.random.default_rng(shape[0])
+    x = torch.from_numpy(rng.integers(-(1 << 12), 1 << 12, shape).astype(np.int32))
+    x.view(-1)[0] = -(1 << 12)
+    ref_max, ref_sum = k6.blk_stats_plain(x)
+    got_max, got_sum = k6.blk_stats(x.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got_max.cpu(), ref_max)
+    assert got_sum.dtype == torch.float64 and got_sum.item() == ref_sum.item()
+
+
+@pytest.mark.parametrize("irreversible", [False, True])
+def test_strip_dwt_on_card_equals_plain_mesh(cuda, irreversible):
+    """The strip wavelet on a virtual 4-shard mesh of the card, forward and
+    inverse, against the same on a CPU mesh of the plain versions; the
+    bridged forward equals the unsharded K-b or K-k output, and the inverse
+    the unsharded K-g or K-n inverse of that, on the bits."""
+    from grok_tpu_torch.parallel import mesh as pm
+
+    H, W, LV = 512, 384, 5
+    rng = np.random.default_rng(4)
+    x = (rng.integers(-2048, 2048, (H, W)).astype(np.float32) if irreversible
+         else rng.integers(-2048, 2048, (H, W)).astype(np.int32))
+    out = []
+    for mesh in (gt.make_mesh(4, device=cuda), gt.make_mesh(4, device="cpu")):
+        fwd, inv = gt.make_sharded_strip_dwt(mesh, LV, irreversible)
+        shards = fwd(x)
+        out.append((pm.join_rows(shards).cpu(), pm.join_rows(inv(shards)).cpu()))
+    assert torch.equal(out[0][0].view(torch.int32), out[1][0].view(torch.int32))
+    assert torch.equal(out[0][1].view(torch.int32), out[1][1].view(torch.int32))
+    fwd_level, inv_level = ((tr.dwt97_fwd_level, tr.dwt97_inv_level) if irreversible
+                            else (tr.dwt53_fwd_level, tr.dwt53_inv_level))
+    ref = torch.from_numpy(x).to(cuda)
+    for lvl in range(LV):
+        fwd_level(ref, H >> lvl, W >> lvl, 0, 0)
+    bridged = pm.strip_to_mallat(out[0][0].to(cuda), 4, LV)
+    assert torch.equal(bridged.view(torch.int32), ref.view(torch.int32))
+    for lvl in range(LV, 0, -1):
+        inv_level(ref, H >> (lvl - 1), W >> (lvl - 1), 0, 0)
+    assert torch.equal(out[0][1].view(torch.int32), ref.cpu().view(torch.int32))
+    if not irreversible:
+        assert torch.equal(out[0][1], torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(num_resolutions=3, tile_size=(64, 64)),
+    dict(num_resolutions=3, tile_size=(37, 37), ht=True),
+    dict(num_resolutions=3, tile_size=(64, 64), irreversible=True),
+])
+def test_distributed_on_card_equals_compress(cuda, kw):
+    """compress_distributed, decompress_distributed and compress_frames on a
+    virtual 4-shard mesh of the card: compress's streams and decompress's
+    planes."""
+    mesh = gt.make_mesh(4, device=cuda)
+    arrs = [np.random.default_rng(s).integers(0, 256, (150, 170, 3)).astype(np.int32)
+            for s in range(3)]
+    one = gt.compress(gt.Image.from_array(arrs[0]), gt.CompressParams(**kw))
+    gt.reset_launch_counts()
+    assert gt.compress_distributed(gt.Image.from_array(arrs[0]), gt.CompressParams(**kw),
+                                   mesh=mesh) == one
+    dec = gt.decompress_distributed(one, mesh=mesh)
+    ref = gt.decompress(one)
+    assert all(np.array_equal(a.data, b.data) for a, b in zip(dec.components, ref.components))
+    frames = gt.compress_frames([gt.Image.from_array(a) for a in arrs],
+                                gt.CompressParams(**dict(kw, tile_size=None)), mesh=mesh)
+    for a, f in zip(arrs, frames):
+        assert f == gt.compress(gt.Image.from_array(a),
+                                gt.CompressParams(**dict(kw, tile_size=None)))
