@@ -10,7 +10,7 @@ Run from the repository root:  python3 chip_smoke.py
 On a machine with two or more cards, ``python3 chip_smoke.py --cards``
 runs the K6 phases alone (slice_dist, e2e_dist, e2e_frames, slice_strip),
 over every card and then over a virtual mesh of as many shards on the
-first card.
+first card. ``python3 chip_smoke.py --check`` stops after phase 4.
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -35,7 +35,17 @@ line):
               card; K-u, K-v and K-b/K-g/K-k/K-n's horizontal halves on the
               level-0 sub-block of a shard of the 4096x4096 strip, K-w on
               the 4K tile batch, plain on the card; all compared exactly,
-              the float outputs on their bits
+              the float outputs on their bits. Kernel times (KernelTimer):
+              one event pair a launch, the median, least and largest of
+              REPS launches after a warm-up, in turns with the row's
+              library call where it has one; warm, and also cold (the L2
+              flushed before each launch) for K-t, K-v and any row with a
+              warm reading under the HBM time of its bytes, which is
+              printed as "l2": true and not as a share of the bound;
+              plain versions one mean of back-to-back launches
+     check_forms  K-v's one-pass form at each band that fits and its
+              two-pass form on that sub-block, each against the plain
+              version, timed in turns with index_select, warm and cold
   5. slice    256x256x3 compress on the card, byte-identical to the plain
               path (device="cpu") and to grok_tpu's stream (REF_SHA256);
      slice_p1dec  the Part-1 stream decoded on the card, equal to the plain
@@ -135,6 +145,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 33.5e12  # H100 SXM peak INT32 rate, NVIDIA H100 white paper
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 FP64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores, NVIDIA data sheet
+REPS = 21  # timed launches of each kernel and library call, after a warm-up launch
+LEAD_CYCLES = 1_000_000  # the spin ahead of each timed launch, about 0.5 ms on an H100
+FLUSH_BYTES = 128 << 20  # the cold mode's overwrite and read: each over the 50 MB L2
 W, H, NC = 3840, 2160, 3
 # codeblocks of each band orientation in the kernel check's seeded sample,
 # which the plain versions code on the CPU (about 1.7 s a codeblock for
@@ -445,8 +458,134 @@ def digest_ok(stream: bytes, key: str) -> tuple[str, bool]:
     return sha, (len(stream), sha) == REF_SHA256[key]
 
 
+def time_turns(fns, reps, event, sync, before):
+    """Per-launch times of each function of ``fns``, in turns: fns[0],
+    fns[1], ... and then backwards (kernel, library, library, kernel, ...),
+    ``reps`` rounds after one warm-up launch of each. ``before()`` runs
+    ahead of every launch, outside its event pair; ``event()`` makes an
+    event with ``record()`` and ``elapsed_time(other)`` in ms; ``sync()``
+    waits for the device. Returns, for each function, the median, the
+    least and the largest of its times and their count."""
+    for fn in fns:
+        fn()
+    sync()
+    pairs = [[] for _ in fns]
+    for i in range(reps):
+        for j in (range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))):
+            before()
+            a, b = event(), event()
+            a.record()
+            fns[j]()
+            b.record()
+            pairs[j].append((a, b))
+    sync()
+    out = []
+    for ps in pairs:
+        t = sorted(a.elapsed_time(b) for a, b in ps)
+        mid = (t[(len(t) - 1) // 2] + t[len(t) // 2]) / 2
+        out.append({"ms": mid, "min": t[0], "max": t[-1], "n": len(t)})
+    return out
+
+
+class KernelTimer:
+    """``time_turns`` on the card, REPS rounds. Warm: each launch finds the
+    data as the launch before left it, in the L2 cache where it fits, as
+    the path finds what the kernel before wrote. Cold: before each launch
+    FLUSH_BYTES are overwritten and another FLUSH_BYTES read, so the L2
+    holds none of the launch's data and only clean lines: the launch reads
+    its inputs from HBM and evicts nothing dirty (its own writes may stay
+    in the L2). Either way a spin of LEAD_CYCLES runs ahead
+    of each launch, so the host has queued the launch before the card
+    reaches its first event: the pair times the device, not the host."""
+
+    def __init__(self, torch, dev):
+        self.torch = torch
+        self.dirty = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        self.clean = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def turns(self, fns, cold=False):
+        def before():
+            if cold:
+                self.dirty.fill_(1)
+                self.clean.sum()
+            self.torch.cuda._sleep(LEAD_CYCLES)
+        return time_turns(fns, REPS, lambda: self.torch.cuda.Event(enable_timing=True),
+                          self.torch.cuda.synchronize, before)
+
+    def warm(self, fn):
+        """fn's warm median, ms."""
+        return self.turns([fn])[0]["ms"]
+
+    def row(self, fn, lib=None, cold=False, bytes_=0):
+        """The times of a kernel's row: fn's warm median, least and largest
+        (ms, ms_min, ms_max), the library call ``lib``'s in turns with it
+        (library_ms ...; None without one), and, where ``cold`` asks or a
+        warm median is under the HBM time of ``bytes_``, the same cold
+        (cold_ms ..., library_cold_ms ...)."""
+        fns = [fn] if lib is None else [fn, lib]
+        out = {"library_ms": None}
+        warm = self.turns(fns)
+        for pre, t in zip(("", "library_"), warm):
+            out.update({f"{pre}ms": t["ms"], f"{pre}ms_min": t["min"], f"{pre}ms_max": t["max"]})
+        if cold or min(t["ms"] for t in warm) < bytes_ / HBM_BYTES_PER_S * 1e3:
+            for pre, t in zip(("cold_", "library_cold_"), self.turns(fns, cold=True)):
+                out.update({f"{pre}ms": t["ms"], f"{pre}ms_min": t["min"],
+                            f"{pre}ms_max": t["max"]})
+        return out
+
+
+def bound_shares(s, bytes_ms):
+    """For each of a row's times (warm and cold, kernel and library): "l2"
+    True where it is under the HBM time of the row's bytes (it cannot have
+    come from HBM), else False and its share of the row's bound."""
+    out = {}
+    for pre in ("", "library_", "cold_", "library_cold_"):
+        v = s.get(f"{pre}ms")
+        if v is None:
+            continue
+        out[f"{pre}l2"] = v < bytes_ms
+        if v >= bytes_ms:
+            out[f"{pre}x_bound"] = v / s["bound_ms"]
+    return out
+
+
+def pack_forms(torch, timer, k6, x_i, x_f, rows_of):
+    """K-v's forms on one sub-block: the one-pass form at each band whose
+    rows fit shared memory, and the two-pass form (the one a sub-block
+    taller than 7,264 rows takes), each equal to the plain version on int32
+    and float32 bits, then timed in turns with each other and with
+    index_select of the row permutation, warm and cold."""
+    h, w = x_i.shape
+    forms = [k6.PackForm("smem", b, -(-w // b)) for b in (8, 16, 32)
+             if h * b * 4 <= k6.SMEM_BYTES] + [k6.PackForm("two_pass", 0, 0)]
+    for unpack, plain in ((False, k6.strip_pack_v_plain), (True, k6.strip_unpack_v_plain)):
+        name = "strip_unpack_v" if unpack else "strip_pack_v"
+        equal = []
+        for f in forms:
+            ok = True
+            for x in (x_i, x_f):
+                got, ref = x.clone(), x.clone()
+                k6.launch_pack(got, h, w, f, unpack)
+                plain(ref, h, w)
+                ok = ok and torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            equal.append(ok)
+        scratch = x_i.clone()
+        fns = [lambda f=f: k6.launch_pack(scratch, h, w, f, unpack) for f in forms]
+        fns.append(lambda: scratch.index_select(0, rows_of[unpack]))
+        warm, cold = timer.turns(fns), timer.turns(fns, cold=True)
+        labels = [f"{f.form} {f.band}" if f.band else f.form for f in forms] + ["index_select"]
+        emit({"phase": "check_forms", "kernel": name, "shape": f"int32 {h}x{w}",
+              "chosen": list(k6.pack_form(h, w)), "bytes": 8 * h * w,
+              "times": {lab: {"warm": a, "cold": b, "equal": e}
+                        for lab, a, b, e in zip(labels, warm, cold, equal + [None])}})
+        if not all(equal):
+            raise AssertionError(f"{name}: a form differs from the plain version: "
+                                 f"{dict(zip(labels, equal))}")
+
+
 def cuda_ms(torch, fn, reps=5):
-    """Mean device milliseconds of fn over reps launches, after a warm-up."""
+    """A plain version's time: mean device ms of fn over reps launches back
+    to back, after a warm-up (plain versions are no yardstick of speed)."""
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -496,11 +635,12 @@ def tile_batch(arr):
                      for r in range(ty) for c in range(tx)]).astype(np.int32)
 
 
-def k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap) -> dict[str, int]:
+def k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap):
     """slice_dist, e2e_dist, e2e_frames and slice_strip over ``mesh``;
     returns the main-path launches of K-w, K-u, K-v and the horizontal
-    halves."""
+    halves, and K-v's launches by form on the strip path."""
     import grok_tpu_torch as gt
+    from grok_tpu_torch import kernels
     from grok_tpu_torch.codestream.compress import build_siz, build_tcp, encode_tile_to_blob
     from grok_tpu_torch.core.rect import Rect
     from grok_tpu_torch.ops import transform as tr
@@ -691,11 +831,12 @@ def k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap) -> dict[str, int]:
     t1 = time.perf_counter()
     strip_stream = gt.compress(gt.Image.from_array(x_strip + 128), p6)
     strip_counts = gt.launch_counts()
+    strip_forms = kernels.form_counts()
     emit({"phase": "slice_strip", "plane": f"{STRIP}x{STRIP}", "levels": STRIP_LEVELS,
           "mesh": [str(d) for d in mesh.devices], "virtual": mesh.virtual, **strip,
           "halo_copies": pm.halo_copies(), "blob_bytes": len(blob),
           "blob_in_compress_stream": blob in strip_stream, "encode_ms": (t1 - t0) * 1e3,
-          "launches": strip_counts})
+          "launches": strip_counts, "forms": strip_forms})
     # the 9/7 round trip within the reference's own bound
     # (tests/test_parallel.py's 1e-3); 5/3 exact
     if not (all(strip[t]["equal_unsharded"] and strip[t]["inverse_equal_unsharded"]
@@ -709,7 +850,7 @@ def k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap) -> dict[str, int]:
     del coeffs53, blob, strip_stream
 
     lap("slice_strip")
-    return got
+    return got, strip_forms
 
 
 def cards_main(torch, gt, mesh, dev, smi, kind, lap, walls) -> int:
@@ -723,8 +864,9 @@ def cards_main(torch, gt, mesh, dev, smi, kind, lap, walls) -> int:
         for m in (mesh, gt.make_mesh(len(mesh), device=dev)):
             emit({"phase": "cards_mesh", "devices": [str(d) for d in m.devices],
                   "virtual": m.virtual})
-            got = k6_phases(torch, m, dev, arr, x_strip, tiles8, lap)
-            emit({"phase": "cards_launches", "virtual": m.virtual, "launches": got})
+            got, forms = k6_phases(torch, m, dev, arr, x_strip, tiles8, lap)
+            emit({"phase": "cards_launches", "virtual": m.virtual, "launches": got,
+                  "forms": forms})
         emit({"phase": "walls", "seconds": walls, "total": sum(walls.values())})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -809,16 +951,17 @@ def main() -> int:
     planes = [torch.from_numpy(np.ascontiguousarray(arr[:, :, c])).to(dev) for c in range(NC)]
     dcs = [128] * NC
     stats = {}
+    timer = KernelTimer(torch, dev)
 
     # K-a on the whole image
     got = tr.dc_rct_fwd(planes, dcs, True)
     ref = tr.dc_rct_fwd_plain(planes, dcs, True)
     err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
     stats["dc_rct_fwd"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: tr.dc_rct_fwd(planes, dcs, True)),
+        max_abs_err=err, **timer.row(lambda: tr.dc_rct_fwd(planes, dcs, True),
+                                     bytes_=6 * 4 * W * H),
         plain_ms=cuda_ms(torch, lambda: tr.dc_rct_fwd_plain(planes, dcs, True)),
-        bytes=6 * 4 * W * H, ops=8 * W * H, library_ms=None, shape=f"3 x {H}x{W} int32")
+        bytes=6 * 4 * W * H, ops=8 * W * H, shape=f"3 x {H}x{W} int32")
 
     # K-b on the whole image: all levels of all components
     levels = []
@@ -838,12 +981,11 @@ def main() -> int:
     dwt_all(tr.dwt53_fwd_level_plain, plain)
     err = max(int((a - b).abs().max()) for a, b in zip(kern, plain))
     packed_ref = [p.clone() for p in plain]
+    lvl_bytes = sum(8 * h * w for (h, w, _, _) in levels)
     stats["dwt53_fwd_level"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: dwt_all(tr.dwt53_fwd_level, kern)),
+        max_abs_err=err, **timer.row(lambda: dwt_all(tr.dwt53_fwd_level, kern), bytes_=lvl_bytes),
         plain_ms=cuda_ms(torch, lambda: dwt_all(tr.dwt53_fwd_level_plain, plain)),
-        bytes=sum(8 * h * w for (h, w, _, _) in levels),
-        ops=sum(9 * h * w for (h, w, _, _) in levels), library_ms=None,
+        bytes=lvl_bytes, ops=sum(9 * h * w for (h, w, _, _) in levels),
         shape="5 levels x 3 comps from 2160x3840 (ms per image)")
     coeffs = tr.forward_transform(planes, [g.rect for g in tp.geoms], [5] * NC, dcs, True)
     if any(not torch.equal(a, b) for a, b in zip(coeffs, packed_ref)):
@@ -860,11 +1002,20 @@ def main() -> int:
                          plan.styles]).to(torch.int32).contiguous()
     tabs = ec.device_tables(dev)
     sym = ec.ebcot_symbols(batch, lanes, tabs["ctx"], pmaxc)
-    ms_c = cuda_ms(torch, lambda: ec.ebcot_symbols(batch, lanes, tabs["ctx"], pmaxc), reps=3)
+    records = sym.numel()  # [n, pmaxc, 3, s_pad] one byte each
+    t_c = timer.row(lambda: ec.ebcot_symbols(batch, lanes, tabs["ctx"], pmaxc),
+                    bytes_=n * bh * bw * 4 + records)
     nb32 = lanes[0].contiguous()
     st32 = lanes[4].contiguous()
     packed = ec.mq_pack(sym, nb32, st32, tabs["mq"], bh, bw, pmax)
-    ms_d = cuda_ms(torch, lambda: ec.mq_pack(sym, nb32, st32, tabs["mq"], bh, bw, pmax), reps=3)
+    s_pad = sym.shape[3]
+    s_spp, s_mrp, s_cup, _ = ec.slot_counts(-(-bh // 4), bw)
+    nbh = numbps.cpu().numpy()
+    read_d = int(sum(max(int(b) - 1, 0) * (s_spp + s_mrp) + int(b) * s_cup for b in nbh))
+    written_d = int(packed[1].sum()) + n  # segment bytes and each lane's carry byte
+    bytes_d = read_d + written_d + n * 8 + packed[2].numel() * 8
+    t_d = timer.row(lambda: ec.mq_pack(sym, nb32, st32, tabs["mq"], bh, bw, pmax),
+                    bytes_=bytes_d)
 
     rng = np.random.default_rng(7)
     orients = plan.orients.cpu().numpy()
@@ -878,42 +1029,34 @@ def main() -> int:
     s_pmax = int(s_lanes[0].max())
     s_pmaxc = -(-s_pmax // 4) * 4
     s_sym = ec.ebcot_symbols(s_batch, s_lanes, tabs["ctx"], s_pmaxc)
-    sample_ms_c = cuda_ms(torch, lambda: ec.ebcot_symbols(s_batch, s_lanes, tabs["ctx"],
-                                                          s_pmaxc), reps=3)
+    sample_ms_c = timer.warm(lambda: ec.ebcot_symbols(s_batch, s_lanes, tabs["ctx"], s_pmaxc))
     plain_ms_c, p_sym = cpu_ms(lambda: ec.ebcot_symbols_plain(
         s_batch.cpu(), s_lanes.cpu(), tabs["ctx"].cpu(), s_pmaxc))
     err_c = int((s_sym.cpu().to(torch.int32) - p_sym.to(torch.int32)).abs().max())
     k_out = ec.mq_pack(s_sym, s_lanes[0].contiguous(), s_lanes[4].contiguous(),
                        tabs["mq"], bh, bw, s_pmax)
-    sample_ms_d = cuda_ms(torch, lambda: ec.mq_pack(s_sym, s_lanes[0].contiguous(),
-                                                    s_lanes[4].contiguous(), tabs["mq"],
-                                                    bh, bw, s_pmax), reps=3)
+    sample_ms_d = timer.warm(lambda: ec.mq_pack(s_sym, s_lanes[0].contiguous(),
+                                                s_lanes[4].contiguous(), tabs["mq"],
+                                                bh, bw, s_pmax))
     plain_ms_d, p_out = cpu_ms(lambda: ec.mq_pack_plain(
         p_sym, s_lanes[0].cpu(), s_lanes[4].cpu(), tabs["mq"].cpu(), bh, bw, s_pmax))
     err_d = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
                 for a, b in zip(k_out, p_out))
-    s_pad = sym.shape[3]
-    s_spp, s_mrp, s_cup, _ = ec.slot_counts(-(-bh // 4), bw)
-    nbh = numbps.cpu().numpy()
-    read_d = int(sum(max(int(b) - 1, 0) * (s_spp + s_mrp) + int(b) * s_cup for b in nbh))
-    written_d = int(packed[1].sum()) + n  # segment bytes and each lane's carry byte
     # the records the coder codes: what sizes K-d's serial chain
     valid = torch.cat([(sym[i:i + 512] >= 0x80).reshape(-1, pmaxc * 3 * s_pad).sum(1)
                        for i in range(0, n, 512)])
-    records = pmaxc * 3 * s_pad * n
     sample = (f"{len(pick)} codeblocks ("
               + ", ".join(f"{(orients[pick] == o).sum()} orient {o}" for o in range(4))
               + "), plain on cpu")
     # operations: at least one integer operation per record written (K-c)
     # or read (K-d); any form of the scan or the coder does more
     stats["ebcot_symbols"] = dict(
-        max_abs_err=err_c, ms=ms_c, plain_ms=plain_ms_c, library_ms=None,
+        max_abs_err=err_c, **t_c, plain_ms=plain_ms_c,
         bytes=n * bh * bw * 4 + records, ops=records,
         shape=f"{n} codeblocks {bh}x{bw}, pmaxc {pmaxc}, records {records} B",
         plain_shape=sample, sample_ms=sample_ms_c)
     stats["mq_pack"] = dict(
-        max_abs_err=err_d, ms=ms_d, plain_ms=plain_ms_d, library_ms=None,
-        bytes=read_d + written_d + n * 8 + packed[2].numel() * 8, ops=read_d,
+        max_abs_err=err_d, **t_d, plain_ms=plain_ms_d, bytes=bytes_d, ops=read_d,
         shape=f"{n} codeblocks, records of coded planes {read_d} B, segments {written_d} B",
         plain_shape=sample, sample_ms=sample_ms_d, valid_records=int(valid.sum()),
         max_valid_records_one_codeblock=int(valid.max()),
@@ -949,8 +1092,11 @@ def main() -> int:
     no_segs = torch.zeros((n, 1), dtype=torch.int32, device=dev)
     dec = ec.ebcot_decode(dec_data, dec_starts, dec_lanes, no_segs, tabs["ctx"], tabs["mq"],
                           bh, bw)
-    ms_i = cuda_ms(torch, lambda: ec.ebcot_decode(dec_data, dec_starts, dec_lanes, no_segs,
-                                                  tabs["ctx"], tabs["mq"], bh, bw), reps=3)
+    dec_bytes = int(seg_len.sum())
+    samples_i = int((plan.heights * plan.widths).sum())
+    bytes_i = dec_bytes + samples_i * 4 + n * (7 * 4 + 8)
+    t_i = timer.row(lambda: ec.ebcot_decode(dec_data, dec_starts, dec_lanes, no_segs,
+                                            tabs["ctx"], tabs["mq"], bh, bw), bytes_=bytes_i)
     whole_ok = torch.equal(dec, batch)
     err_i = int((dec.to(torch.int64) - batch).abs().max())
     del dec
@@ -989,15 +1135,13 @@ def main() -> int:
             err_i = max(err_i, i_checks[label]["max_abs_err"])
     if not whole_ok:
         raise AssertionError("ebcot_decode of the 4K batch is not the batch")
-    dec_bytes = int(seg_len.sum())
-    samples_i = int((plan.heights * plan.widths).sum())
     stats["ebcot_decode"] = dict(
-        max_abs_err=err_i, ms=ms_i, plain_ms=i_checks["whole"]["plain_ms"], library_ms=None,
-        bytes=dec_bytes + samples_i * 4 + n * (7 * 4 + 8), ops=int(valid.sum()),
+        max_abs_err=err_i, **t_i, plain_ms=i_checks["whole"]["plain_ms"], bytes=bytes_i,
+        ops=int(valid.sum()),
         shape=f"{n} codeblocks {bh}x{bw}, {samples_i} samples, segments {dec_bytes} B, "
               f"{int(valid.sum())} decisions (at most {int(valid.max())} in one codeblock)",
         plain_shape=sample, sample_checks=i_checks,
-        ns_per_decision_longest=ms_i * 1e6 / int(valid.max()))
+        ns_per_decision_longest=t_i["ms"] * 1e6 / int(valid.max()))
     del sym, packed, s_sym, buf, dec_data
 
     # K-e / K-f: full 4K batch on the card, the same sample against the
@@ -1007,21 +1151,23 @@ def main() -> int:
     htab = hc.ht_tables(dev)
     mmax = max((2 * int(batch.abs().max()) - 1).bit_length(), 1)
     hbuf, hlen = hc.ht_cleanup_enc(batch, h32, w32, htab, mmax)
-    ms_e = cuda_ms(torch, lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax), reps=3)
+    samples = int((h32.to(torch.int64) * w32).sum())  # inside the codeblocks
+    seg_bytes = int(hlen.sum())
+    t_e = timer.row(lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax),
+                    bytes_=samples * 4 + seg_bytes + n * 8)
     # with the block energy of rate control: the same segments, and the
     # energies of the plain version (on the card)
     e_buf, e_len, energy = hc.ht_cleanup_enc(batch, h32, w32, htab, mmax, want_energy=True)
-    ms_e_energy = cuda_ms(torch, lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax,
-                                                           want_energy=True), reps=3)
+    ms_e_energy = timer.warm(lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax,
+                                                       want_energy=True))
     energy_ok = (torch.equal(e_buf, hbuf) and torch.equal(e_len, hlen)
                  and torch.equal(energy, hc.block_energy_plain(batch, h32, w32)))
     del e_buf, e_len, energy
-    seg_bytes = int(hlen.sum())
     hdata = hbuf[:, :int(hlen.max())].contiguous()
     hlen32 = hlen.to(torch.int32)
     dec, dec_stopped = hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw)
-    ms_f = cuda_ms(torch, lambda: hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw),
-                   reps=3)
+    t_f = timer.row(lambda: hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw),
+                    bytes_=seg_bytes + samples * 4 + n)
     if bool(dec_stopped.any()) or not torch.equal(dec, batch):
         raise AssertionError("ht_cleanup_dec of the 4K batch is not the batch")
     del dec, dec_stopped
@@ -1043,15 +1189,14 @@ def main() -> int:
         s_data.cpu(), s_len32.cpu(), s_h.cpu(), s_w.cpu(), bh, bw))
     err_f = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
                 for a, b in zip(k_dec, p_dec))
-    samples = int((h32.to(torch.int64) * w32).sum())  # inside the codeblocks
     stats["ht_cleanup_enc"] = dict(
-        max_abs_err=err_e, ms=ms_e, plain_ms=plain_ms_e, library_ms=None,
+        max_abs_err=err_e, **t_e, plain_ms=plain_ms_e,
         bytes=samples * 4 + seg_bytes + n * 8, ops=samples,
         shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B, "
               f"MagSgn fields <= {mmax} bits", plain_shape=sample,
         ms_with_energy=ms_e_energy, energy_equal=energy_ok)
     stats["ht_cleanup_dec"] = dict(
-        max_abs_err=err_f, ms=ms_f, plain_ms=plain_ms_f, library_ms=None,
+        max_abs_err=err_f, **t_f, plain_ms=plain_ms_f,
         bytes=seg_bytes + samples * 4 + n, ops=samples,
         shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B",
         plain_shape=sample)
@@ -1072,10 +1217,9 @@ def main() -> int:
     scratch = [p.clone() for p in coeffs]  # timed in place, as K-b is
     stats["dwt53_inv_level"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(torch, lambda: idwt_all(tr.dwt53_inv_level, scratch)),
+        **timer.row(lambda: idwt_all(tr.dwt53_inv_level, scratch), bytes_=lvl_bytes),
         plain_ms=cuda_ms(torch, lambda: idwt_all(tr.dwt53_inv_level_plain, scratch)),
-        bytes=sum(8 * h * w for (h, w, _, _) in inv_levels),
-        ops=sum(9 * h * w for (h, w, _, _) in inv_levels), library_ms=None,
+        bytes=lvl_bytes, ops=sum(9 * h * w for (h, w, _, _) in inv_levels),
         shape="5 levels x 3 comps to 2160x3840 (ms per image)")
     rng8 = [(0, 255)] * NC
     k_out = tr.rct_inv_dc_clip([p.clone() for p in kern], dcs, rng8, True)
@@ -1085,10 +1229,10 @@ def main() -> int:
            for c in range(NC)):
         raise AssertionError("inverse chain of the 4K coefficients is not the image")
     stats["rct_inv_dc_clip"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: tr.rct_inv_dc_clip(kern, dcs, rng8, True)),
+        max_abs_err=err, **timer.row(lambda: tr.rct_inv_dc_clip(kern, dcs, rng8, True),
+                                     bytes_=6 * 4 * W * H),
         plain_ms=cuda_ms(torch, lambda: tr.rct_inv_dc_clip_plain(kern, dcs, rng8, True)),
-        bytes=6 * 4 * W * H, ops=10 * W * H, library_ms=None, shape=f"3 x {H}x{W} int32")
+        bytes=6 * 4 * W * H, ops=10 * W * H, shape=f"3 x {H}x{W} int32")
     del kern, plain, k_out, p_out, scratch
 
     # K-j ... K-o on the whole image: the 9/7 + ICT chain, each kernel on
@@ -1111,9 +1255,9 @@ def main() -> int:
     f_in = tr.dc_ict_fwd(planes, dcs, True)
     stats["dc_ict_fwd"] = dict(
         max_abs_err=err_of(f_in, tr.dc_ict_fwd_plain(planes, dcs, True)),
-        ms=cuda_ms(torch, lambda: tr.dc_ict_fwd(planes, dcs, True)),
+        **timer.row(lambda: tr.dc_ict_fwd(planes, dcs, True), bytes_=6 * 4 * npx),
         plain_ms=cuda_ms(torch, lambda: tr.dc_ict_fwd_plain(planes, dcs, True)),
-        bytes=6 * 4 * npx, ops=15 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
+        bytes=6 * 4 * npx, ops=15 * npx, op_rate=FP32_OPS_PER_S,
         shape=f"3 x {H}x{W} int32 -> float32")
     kern = [p.clone() for p in f_in]
     plain = [p.clone() for p in f_in]
@@ -1124,18 +1268,19 @@ def main() -> int:
     lift_ops = sum(26 * h * w for (h, w, _, _) in levels)  # 4 steps of 3 + a scaling, 2 axes
     stats["dwt97_fwd_level"] = dict(
         max_abs_err=err_of(kern, plain),
-        ms=cuda_ms(torch, lambda: dwt_all(tr.dwt97_fwd_level, scratch)),
+        **timer.row(lambda: dwt_all(tr.dwt97_fwd_level, scratch), bytes_=lift_bytes),
         plain_ms=cuda_ms(torch, lambda: dwt_all(tr.dwt97_fwd_level_plain, scratch)),
-        bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S, library_ms=None,
+        bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S,
         shape="5 levels x 3 comps from 2160x3840 float32 (ms per image)")
     q_k = [tr.quant_deadzone(p, b) for p, b in zip(kern, bands)]
     q_p = [tr.quant_deadzone_plain(p, b) for p, b in zip(kern, bands)]
     stats["quant_deadzone"] = dict(
         max_abs_err=err_of(q_k, q_p),
-        ms=cuda_ms(torch, lambda: [tr.quant_deadzone(p, b) for p, b in zip(kern, bands)]),
+        **timer.row(lambda: [tr.quant_deadzone(p, b) for p, b in zip(kern, bands)],
+                    bytes_=8 * 3 * npx),
         plain_ms=cuda_ms(torch, lambda: [tr.quant_deadzone_plain(p, b)
                                          for p, b in zip(kern, bands)]),
-        bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
+        bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S,
         shape=f"3 x {H}x{W} float32 -> int32, {len(bands[0])} bands a component")
 
     # K-p and K-q on the whole 4K lossy97 batch (the codeblocks of these
@@ -1152,7 +1297,6 @@ def main() -> int:
     sym97 = ec.ebcot_symbols(b97, lanes97, tabs["ctx"], -(-pmax97 // 4) * 4)
     nb97_32 = lanes97[0].contiguous()
     dist97 = ec.ebcot_pass_dist(sym97, b97, nb97_32, pmax97)
-    ms_p = cuda_ms(torch, lambda: ec.ebcot_pass_dist(sym97, b97, nb97_32, pmax97), reps=3)
     p_dist97 = ec.pass_dist_from_records(sym97, b97, nb97_32, pmax97)
     plain_ms_p = cuda_ms(torch, lambda: ec.pass_dist_from_records(sym97, b97, nb97_32, pmax97),
                          reps=1)
@@ -1176,9 +1320,11 @@ def main() -> int:
                        + (ch[:, :, 2, :ns97 * bw97 * 11].reshape(ch.shape[0], ch.shape[1], -1,
                                                                  11)[..., 4::2] >= 0x80).sum())
     p_passes = dist97.shape[1]
+    bytes_p = read_p + in_blk97 * 4 + n97 * 4 + n97 * p_passes * 8
     stats["ebcot_pass_dist"] = dict(
-        max_abs_err=err_p, ms=ms_p, plain_ms=plain_ms_p, library_ms=None,
-        bytes=read_p + in_blk97 * 4 + n97 * 4 + n97 * p_passes * 8, ops=5 * valid_p,
+        max_abs_err=err_p,
+        **timer.row(lambda: ec.ebcot_pass_dist(sym97, b97, nb97_32, pmax97), bytes_=bytes_p),
+        plain_ms=plain_ms_p, bytes=bytes_p, ops=5 * valid_p,
         op_rate=FP64_OPS_PER_S,
         shape=f"{n97} codeblocks {bh97}x{bw97} (4K lossy97), {p_passes} passes, "
               f"{read_p} B of records read, {valid_p} decreases",
@@ -1193,15 +1339,15 @@ def main() -> int:
     hull97 = [torch.from_numpy(a) for a in (r97, d97, np97.astype(np.int32))]
     hull97_dev = [t.to(dev) for t in hull97]
     k_sl97 = rc.hull_slopes(*hull97_dev)
-    ms_q = cuda_ms(torch, lambda: rc.hull_slopes(*hull97_dev), reps=5)
     plain_ms_q, p_sl97 = cpu_ms(lambda: rc.hull_slopes(*hull97))
     err_q = 0.0 if torch.equal(k_sl97.cpu(), p_sl97) else (
         float((k_sl97.cpu() - p_sl97).abs().max()) or 1e-30)
     if not sample_checks_pq["hull_slopes"]["equal"]:
         err_q = max(err_q, 1e-30)
+    bytes_q = n97 * p_passes * 8 + int(np97.sum()) * 16 + n97 * 4
     stats["hull_slopes"] = dict(
-        max_abs_err=err_q, ms=ms_q, plain_ms=plain_ms_q, library_ms=None,
-        bytes=n97 * p_passes * 8 + int(np97.sum()) * 16 + n97 * 4, ops=10 * int(np97.sum()),
+        max_abs_err=err_q, **timer.row(lambda: rc.hull_slopes(*hull97_dev), bytes_=bytes_q),
+        plain_ms=plain_ms_q, bytes=bytes_q, ops=10 * int(np97.sum()),
         op_rate=FP64_OPS_PER_S,
         shape=f"{n97} codeblocks (4K lossy97), {p_passes} passes, {int(np97.sum())} coded",
         plain_shape="the same batch, plain on cpu",
@@ -1211,10 +1357,11 @@ def main() -> int:
     d_p = [tr.dequant_midbin_plain(q, b) for q, b in zip(q_k, bands)]
     stats["dequant_midbin"] = dict(
         max_abs_err=err_of(d_k, d_p),
-        ms=cuda_ms(torch, lambda: [tr.dequant_midbin(q, b) for q, b in zip(q_k, bands)]),
+        **timer.row(lambda: [tr.dequant_midbin(q, b) for q, b in zip(q_k, bands)],
+                    bytes_=8 * 3 * npx),
         plain_ms=cuda_ms(torch, lambda: [tr.dequant_midbin_plain(q, b)
                                          for q, b in zip(q_k, bands)]),
-        bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
+        bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S,
         shape=f"3 x {H}x{W} int32 -> float32, {len(bands[0])} bands a component")
     kern = [p.clone() for p in d_k]
     plain = [p.clone() for p in d_k]
@@ -1223,9 +1370,9 @@ def main() -> int:
     scratch = [p.clone() for p in d_k]
     stats["dwt97_inv_level"] = dict(
         max_abs_err=err_of(kern, plain),
-        ms=cuda_ms(torch, lambda: idwt_all(tr.dwt97_inv_level, scratch)),
+        **timer.row(lambda: idwt_all(tr.dwt97_inv_level, scratch), bytes_=lift_bytes),
         plain_ms=cuda_ms(torch, lambda: idwt_all(tr.dwt97_inv_level_plain, scratch)),
-        bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S, library_ms=None,
+        bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S,
         shape="5 levels x 3 comps to 2160x3840 float32 (ms per image)")
     o_k = tr.ict_inv_dc_round_clip(kern, dcs, rng8, True)
     o_p = tr.ict_inv_dc_round_clip_plain(kern, dcs, rng8, True)
@@ -1233,9 +1380,10 @@ def main() -> int:
                 for c, o in enumerate(o_k))
     stats["ict_inv_dc_round_clip"] = dict(
         max_abs_err=err_of(o_k, o_p),
-        ms=cuda_ms(torch, lambda: tr.ict_inv_dc_round_clip(kern, dcs, rng8, True)),
+        **timer.row(lambda: tr.ict_inv_dc_round_clip(kern, dcs, rng8, True),
+                    bytes_=6 * 4 * npx),
         plain_ms=cuda_ms(torch, lambda: tr.ict_inv_dc_round_clip_plain(kern, dcs, rng8, True)),
-        bytes=6 * 4 * npx, ops=14 * npx, op_rate=FP32_OPS_PER_S, library_ms=None,
+        bytes=6 * 4 * npx, ops=14 * npx, op_rate=FP32_OPS_PER_S,
         shape=f"3 x {H}x{W} float32 -> int32", chain_max_err_vs_input=worst)
     del f_in, kern, plain, scratch, q_k, q_p, d_k, d_p, o_k, o_p
 
@@ -1250,10 +1398,10 @@ def main() -> int:
     flat_t = torch.stack([p - 128 for p in planes]).reshape(NC, -1).float()
     stats["dc_mct_fwd"] = dict(
         max_abs_err=err_of(r_k, tr.dc_mct_fwd_plain(planes, dcs, m3)),
-        ms=cuda_ms(torch, lambda: tr.dc_mct_fwd(planes, dcs, m3)),
+        **timer.row(lambda: tr.dc_mct_fwd(planes, dcs, m3), bytes_=6 * 4 * npx),
         plain_ms=cuda_ms(torch, lambda: tr.dc_mct_fwd_plain(planes, dcs, m3), reps=1),
         bytes=6 * 4 * npx, ops=(2 * NC * NC + NC) * npx, op_rate=FP32_OPS_PER_S,
-        library_ms=None, torch_matmul_ms=cuda_ms(torch, lambda: torch.matmul(m3_t, flat_t)),
+        torch_matmul_ms=timer.warm(lambda: torch.matmul(m3_t, flat_t)),
         torch_matmul_note="torch.matmul of the matrix and the DC-shifted planes stacked as "
                           "float32: not the same function (it rounds differently, with no "
                           "fused chain in k order), so no library_ms",
@@ -1265,11 +1413,11 @@ def main() -> int:
                 for c, o in enumerate(s_k))
     stats["mct_inv_round_clip"] = dict(
         max_abs_err=err_of(s_k, tr.mct_inv_round_clip_plain(r_k, m3_inv, offs, rng8)),
-        ms=cuda_ms(torch, lambda: tr.mct_inv_round_clip(r_k, m3_inv, offs, rng8)),
+        **timer.row(lambda: tr.mct_inv_round_clip(r_k, m3_inv, offs, rng8), bytes_=6 * 4 * npx),
         plain_ms=cuda_ms(torch, lambda: tr.mct_inv_round_clip_plain(r_k, m3_inv, offs, rng8),
                          reps=1),
         bytes=6 * 4 * npx, ops=(2 * NC * NC + 2 * NC) * npx, op_rate=FP32_OPS_PER_S,
-        library_ms=None, shape=f"{NC} x {H}x{W} float32 -> int32, {NC}x{NC} matrix",
+        shape=f"{NC} x {H}x{W} float32 -> int32, {NC}x{NC} matrix",
         chain_max_err_vs_input=worst)
     if worst > 1:
         raise AssertionError(f"the Part-2 MCT and its inverse are {worst} off the image")
@@ -1280,17 +1428,18 @@ def main() -> int:
     if not torch.equal(down_k, roi_in):
         raise AssertionError("roi_down of roi_up is not the plane")
     roi_scratch = roi_in.clone()
-    # the up shift is one PyTorch call, bitwise_left_shift_; the down shift
-    # (a shift only where the magnitude reaches 1 << s, the sign kept) is none
+    # the up shift is one PyTorch call, bitwise_left_shift_, timed in turns
+    # with the kernel on the same plane; the down shift (a shift only where
+    # the magnitude reaches 1 << s, the sign kept) is none; both warm and cold
     for name, k_out, p_out, fn, pfn, lib in (
             ("roi_up", up_k, up_p, tr.roi_up, tr.roi_up_plain,
              lambda: roi_scratch.bitwise_left_shift_(4)),
             ("roi_down", down_k, down_p, tr.roi_down, tr.roi_down_plain, None)):
         stats[name] = dict(
             max_abs_err=int((k_out - p_out).abs().max()),
-            ms=cuda_ms(torch, lambda: fn(roi_scratch, 4)),
+            **timer.row(lambda: fn(roi_scratch, 4), lib, cold=True, bytes_=8 * npx),
             plain_ms=cuda_ms(torch, lambda: pfn(roi_scratch, 4)),
-            bytes=8 * npx, ops=3 * npx, library_ms=None if lib is None else cuda_ms(torch, lib),
+            bytes=8 * npx, ops=3 * npx,
             shape=f"{H}x{W} int32 packed 5/3 plane, shift 4, in place")
     del roi_in, up_k, up_p, down_k, down_p, roi_scratch
 
@@ -1298,8 +1447,7 @@ def main() -> int:
     # sub-block of shard 1 of the 4096x4096 strip (its halo the neighbour's
     # row), K-w on one shard's slice of the 4K tile batch's packed
     # coefficients (the shape the path launches it at); each against its
-    # plain version on the card, exactly (floats on their bits), one launch
-    # timed
+    # plain version on the card, exactly (floats on their bits)
     x_strip = natural_image(STRIP, STRIP, 1) - 128
     sh_i = pm.split_rows(x_strip, mesh)
     sh_f = pm.split_rows(x_strip, mesh, torch.float32)
@@ -1310,17 +1458,19 @@ def main() -> int:
     sub_px = sub_h * sub_w
 
     def k6_check(name, fn, plain, x, args, bytes_, ops, op_rate=INT32_OPS_PER_S, lib=None,
-                 shape=""):
+                 cold=False, shape=""):
+        """``lib``, if any, maps the kernel's scratch to its library call."""
         got, ref = x.clone(), x.clone()
         fn(got, *args)
         plain(ref, *args)
         err = 0 if same_bits(got, ref) else 1
         scratch = x.clone()
         stats[name] = dict(
-            max_abs_err=err, ms=cuda_ms(torch, lambda: fn(scratch, *args)),
+            max_abs_err=err,
+            **timer.row(lambda: fn(scratch, *args), lib and (lambda: lib(scratch)), cold,
+                        bytes_),
             plain_ms=cuda_ms(torch, lambda: plain(scratch, *args)), bytes=bytes_, ops=ops,
-            op_rate=op_rate, library_ms=None if lib is None else cuda_ms(torch, lib),
-            shape=shape)
+            op_rate=op_rate, shape=shape)
 
     where = f"level-0 sub-block {sub_h}x{sub_w} of shard {k_sub} of the {STRIP}x{STRIP} strip"
     k6_check("strip53_step", k6.strip53_step, k6.strip53_step_plain, sh_i[k_sub],
@@ -1341,21 +1491,22 @@ def main() -> int:
             k6.strip97_step(a, sub_h, sub_w, None, update, coef, inv)
             k6.strip97_step_plain(b, sub_h, sub_w, None, update, coef, inv)
             stats["strip97_step"]["max_abs_err"] |= int(not same_bits(a, b))
+    # K-v warm and cold, in turns with index_select of the row permutation
+    # (out of place) on the same sub-block
     perm = torch.cat([torch.arange(0, sub_h, 2), torch.arange(1, sub_h, 2)]).to(dev)
     unperm = torch.argsort(perm)
-    lib_src = sh_i[k_sub]
-    k6_check("strip_pack_v", k6.strip_pack_v, k6.strip_pack_v_plain, sh_i[k_sub],
-             (sub_h, sub_w), 8 * sub_px, 0, lib=lambda: lib_src.index_select(0, perm),
-             shape=f"int32 (5/3), {where}; library: index_select of the row permutation")
-    k6_check("strip_unpack_v", k6.strip_unpack_v, k6.strip_unpack_v_plain, sh_i[k_sub],
-             (sub_h, sub_w), 8 * sub_px, 0, lib=lambda: lib_src.index_select(0, unperm),
-             shape=f"int32 (5/3), {where}; library: index_select of the row permutation")
-    for fn, plain in ((k6.strip_pack_v, k6.strip_pack_v_plain),
-                      (k6.strip_unpack_v, k6.strip_unpack_v_plain)):
+    for fn, plain, rows in ((k6.strip_pack_v, k6.strip_pack_v_plain, perm),
+                            (k6.strip_unpack_v, k6.strip_unpack_v_plain, unperm)):
+        k6_check(fn.__name__, fn, plain, sh_i[k_sub], (sub_h, sub_w), 8 * sub_px, 0,
+                 lib=lambda x, rows=rows: x.index_select(0, rows), cold=True,
+                 shape=f"int32 (5/3), {where}; library: index_select of the row permutation")
         a, b = sh_f[k_sub].clone(), sh_f[k_sub].clone()  # the 9/7 scaling
         fn(a, sub_h, sub_w)
         plain(b, sub_h, sub_w)
         stats[fn.__name__]["max_abs_err"] |= int(not same_bits(a, b))
+    if hasattr(k6, "launch_pack"):  # a checkout from before K-v's forms has one form
+        pack_forms(torch, timer, k6, sh_i[k_sub], sh_f[k_sub], rows_of={False: perm,
+                                                                   True: unperm})
     for name, fn, plain, x, ops, rate in (
             ("dwt53_fwd_h", tr.dwt53_fwd_h, tr.dwt53_fwd_h_plain, sh_i[k_sub], 4, INT32_OPS_PER_S),
             ("dwt53_inv_h", tr.dwt53_inv_h, tr.dwt53_inv_h_plain, sh_i[k_sub], 4, INT32_OPS_PER_S),
@@ -1372,25 +1523,31 @@ def main() -> int:
     del packed8
     bm_k, sum_k = k6.blk_stats(shard8)
     bm_p, sum_p = k6.blk_stats_plain(shard8)
+    bytes_w = 4 * shard8.numel() + 4 * bm_k.numel() + 8
     stats["blk_stats"] = dict(
         max_abs_err=int((bm_k - bm_p).abs().max()) + (0 if sum_k.item() == sum_p.item() else 1),
-        ms=cuda_ms(torch, lambda: k6.blk_stats(shard8)),
+        **timer.row(lambda: k6.blk_stats(shard8), bytes_=bytes_w),
         plain_ms=cuda_ms(torch, lambda: k6.blk_stats_plain(shard8)),
-        bytes=4 * shard8.numel() + 4 * bm_k.numel() + 8, ops=2 * shard8.numel(),
-        op_rate=FP64_OPS_PER_S, library_ms=None,
+        bytes=bytes_w, ops=2 * shard8.numel(), op_rate=FP64_OPS_PER_S,
         shape=f"int32 {list(shard8.shape)} (one shard of the 4K tile batch, 5 levels)")
     del shard8, bm_k, bm_p
 
+    del timer
     for name, s in stats.items():
         bytes_ms = s["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = s["ops"] / s.pop("op_rate", INT32_OPS_PER_S) * 1e3
         s["bound_ms"] = max(bytes_ms, ops_ms)
         s["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        s.update(bound_shares(s, bytes_ms))
         emit({"phase": "check", "kernel": name, "tolerance": 0, **s})
         if s["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from its plain version")
 
     lap("kernel_check")
+    if "--check" in sys.argv[1:]:
+        emit({"phase": "walls", "seconds": walls, "total": sum(walls.values())})
+        print(smi, flush=True)
+        return 0
 
     # ---- 5. whole slice at 256x256x3: kernel path == plain path
     small = natural_image(256, 256, 3)
@@ -1774,7 +1931,8 @@ def main() -> int:
                                    ROI_HT_KERNELS)["roi_down"]
     lap("e2e_roi_ht")
 
-    counts.update(k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap))
+    k6_counts, forms = k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap)
+    counts.update(k6_counts)
 
     # ---- 9. truncated streams: the card's planes equal the plain path's
     cuts = cut_streams(gt)
@@ -1825,9 +1983,11 @@ def main() -> int:
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",
          "replaces": k.replaces, "launches": counts[k.name],
+         **({"forms": forms[k.name]} if k.name in forms else {}),
          "max_abs_err": stats[k.name]["max_abs_err"], "ms": stats[k.name]["ms"],
-         "plain_ms": stats[k.name]["plain_ms"], "bound_ms": stats[k.name]["bound_ms"],
-         "bound_by": stats[k.name]["bound_by"], "library_ms": stats[k.name]["library_ms"]}
+         "l2": stats[k.name]["l2"], "plain_ms": stats[k.name]["plain_ms"],
+         "bound_ms": stats[k.name]["bound_ms"], "bound_by": stats[k.name]["bound_by"],
+         "library_ms": stats[k.name]["library_ms"]}
         for k in kernels.KERNELS.values()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,7 +15,9 @@ fuse (numpy's float32 matmul of the Part-2 MCT), the source writes
 __fmaf_rn itself, which the flag leaves alone.
 
 Every kernel's wrapper adds one to its ``Kernel.launches`` where it calls
-the library, and nowhere else (``launch_counts``/``reset_launch_counts``).
+the library, and nowhere else (``launch_counts``/``reset_launch_counts``);
+a kernel with several forms (K-v) also counts the launches of each form
+(``form_counts``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import os
 import shutil
 import subprocess
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -53,14 +55,18 @@ class Kernel:
     argtypes: tuple
     flags: tuple = ()  # nvcc flags beyond NVCC_FLAGS, the same for every kernel of a source
     launches: int = 0
+    forms: dict = field(default_factory=dict)  # launches by form, for kernels with forms
 
-    def call(self, *args) -> None:
-        """Launch through the C entry; raise on a CUDA error code."""
+    def call(self, *args, form: str | None = None) -> None:
+        """Launch through the C entry; raise on a CUDA error code. ``form``
+        names the form launched, for a kernel that has several."""
         fn = getattr(_library(self.source), self.name)
         rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
         self.launches += 1
+        if form is not None:
+            self.forms[form] = self.forms.get(form, 0) + 1
 
 
 KERNELS: dict[str, Kernel] = {
@@ -153,11 +159,11 @@ KERNELS: dict[str, Kernel] = {
         Kernel("strip_pack_v", "strip_dwt.cu",
                "grok_tpu/parallel/mesh.py:90, :172-174 (K6: the [s | d] packing and 9/7 "
                "scaling of the sharded forward)",
-               (_P, _P, _I64, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+               (_P, _P, _I64, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
         Kernel("strip_unpack_v", "strip_dwt.cu",
                "grok_tpu/parallel/mesh.py:96-98, :112-114, :181-183, :201-203 (K6: the "
                "unpacking, 9/7 scaling and interleave of the sharded inverse)",
-               (_P, _P, _I64, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+               (_P, _P, _I64, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
         Kernel("dwt53_fwd_h", "dwt53.cu",
                "grok_tpu/parallel/mesh.py:118 (K6: _fwd53_h_local)",
                (_P, _P, _I32, _I32, _I32, _I32, _P)),
@@ -184,9 +190,15 @@ def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS.values()}
 
 
+def form_counts() -> dict[str, dict[str, int]]:
+    """The launches of each form of the kernels that have forms."""
+    return {k.name: dict(k.forms) for k in KERNELS.values() if k.forms}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.forms.clear()
 
 
 def source_flags(source: str) -> list[str]:

@@ -18,6 +18,8 @@ only for CPU tensors; CUDA tensors launch the kernel.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import kernels
@@ -107,6 +109,47 @@ def strip97_step_plain(plane, h, w, halo, update, coef, inverse):
 
 
 # ============================================= K-v: packing
+SMEM_BYTES = 232_448  # the shared memory one block can have on Hopper (227 KB)
+# the column bands of the one-pass form, in order of preference (chosen on
+# the card: PERF.md §6); a band of 8 columns is one 32-byte sector a row
+PACK_BANDS = (16, 8)
+
+
+class PackForm(NamedTuple):
+    """How K-v runs on an h x w sub-block: ``form`` "smem" stages a column
+    band of ``band`` columns and all h rows in one block's shared memory and
+    writes the rows back permuted, in place, in one pass of ``blocks``
+    blocks; "two_pass" writes a compact scratch and copies it back."""
+
+    form: str
+    band: int
+    blocks: int
+
+
+def pack_form(h: int, w: int) -> PackForm:
+    """K-v's form: the first band of PACK_BANDS whose h rows fit a block's
+    shared memory (h x band x 4 bytes), else the two-pass form (above 7,264
+    rows). The form follows from h alone; w sets the number of bands, the
+    last one ragged."""
+    for band in PACK_BANDS:
+        if h * band * 4 <= SMEM_BYTES:
+            return PackForm("smem", band, -(-w // band))
+    return PackForm("two_pass", 0, 0)
+
+
+def launch_pack(plane: torch.Tensor, h: int, w: int, form: PackForm, unpack: bool) -> None:
+    """Launch K-v's ``form`` on a CUDA shard (the wrappers pass
+    ``pack_form``'s); only the two-pass form allocates, its scratch."""
+    if plane.device.type != "cuda":
+        raise ValueError(f"launch_pack: want a CUDA shard, got {plane.device}")
+    name = "strip_unpack_v" if unpack else "strip_pack_v"
+    tmp = (torch.empty(h * w, dtype=plane.dtype, device=plane.device)
+           if form.form == "two_pass" else None)
+    kernels.KERNELS[name].call(plane.data_ptr(), None if tmp is None else tmp.data_ptr(),
+                               plane.stride(0), h, w, int(plane.dtype == torch.float32),
+                               form.band, kernels.stream_ptr(plane.device), form=form.form)
+
+
 def _pack(name: str, plain, plane: torch.Tensor, h: int, w: int) -> None:
     dtype = plane.dtype
     if dtype not in (torch.int32, torch.float32):
@@ -117,9 +160,7 @@ def _pack(name: str, plain, plane: torch.Tensor, h: int, w: int) -> None:
     if plane.device.type == "cpu":
         plain(plane, h, w)
         return
-    tmp = torch.empty(h * w, dtype=dtype, device=plane.device)
-    kernels.KERNELS[name].call(plane.data_ptr(), tmp.data_ptr(), plane.stride(0), h, w,
-                               int(dtype == torch.float32), kernels.stream_ptr(plane.device))
+    launch_pack(plane, h, w, pack_form(h, w), name == "strip_unpack_v")
 
 
 def strip_pack_v(plane: torch.Tensor, h: int, w: int) -> None:

@@ -727,15 +727,24 @@ def test_mct_kernels_equal_plain(cuda, n):
 
 
 @pytest.mark.parametrize("shift", [1, 4, 6, 30])
-def test_roi_kernels_equal_plain(cuda, shift):
+@pytest.mark.parametrize("shape,offset", [((53, 77), 0), ((1, 1), 1), ((1, 3), 1), ((1, 5), 1),
+                                          ((7, 573), 1), ((7, 573), 0)])
+def test_roi_kernels_equal_plain(cuda, shift, shape, offset):
+    """K-t on planes of 4K + 1 and 4K + 3 samples and of 1, 3 and 5, at a
+    16-byte aligned base and one element past it (roi_up's scalar head and
+    tail), on values that wrap when shifted."""
     rng = np.random.default_rng(shift)
-    a = rng.integers(-(1 << 20), 1 << 20, (53, 77)).astype(np.int32)
-    a[0, :5] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0, -1, -(1 << shift)]
+    a = rng.integers(-(1 << 20), 1 << 20, shape).astype(np.int32)
+    a.reshape(-1)[:5] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0, -1,
+                         -(1 << shift)][:a.size]
     t = torch.from_numpy(a)
     for name, fn, plain in (("roi_up", tr.roi_up, tr.roi_up_plain),
                             ("roi_down", tr.roi_down, tr.roi_down_plain)):
+        buf = torch.empty(a.size + offset, dtype=torch.int32, device=cuda)
+        x = buf[offset:].view(shape)
+        x.copy_(t)
         before = _launches(name)
-        got = fn(t.to(cuda), shift)
+        got = fn(x, shift)
         torch.cuda.synchronize()
         assert _launches(name) == before + 1
         assert torch.equal(got.cpu(), plain(t.clone(), shift))
@@ -826,21 +835,34 @@ def test_strip_step_kernels_equal_plain(cuda, h, w, update, with_halo):
             assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
 
 
-@pytest.mark.parametrize("h,w", [(2, 1), (10, 37), (1024, 4096)])
+@pytest.mark.parametrize("h,w", [(2, 1), (10, 37), (1024, 4096), (512, 2048), (256, 1024),
+                                 (128, 512), (64, 256), (8192, 8)])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-def test_strip_pack_kernels_equal_plain(cuda, h, w, dtype):
+@pytest.mark.parametrize("col0", [0, 1])
+def test_strip_pack_kernels_equal_plain(cuda, h, w, dtype, col0):
+    """K-v at every level of slice_strip's shard (1024x4096 down to 64x256),
+    at widths that leave a ragged band, on a sub-block of a shard whose rows
+    are longer than w, a multiple of 4 samples (16-byte copies) or, with
+    col0 1, from a base that is not 16-byte aligned (4-byte copies); 8192
+    rows take the two-pass form. The form launched is pack_form's."""
+    from grok_tpu_torch import kernels
     from grok_tpu_torch.parallel import ops as k6
 
     rng = np.random.default_rng(h + w)
-    x = torch.from_numpy((rng.standard_normal((h + 3, w + 2)) * 1e4).astype(np.float32))
-    x = x.to(torch.int32) if dtype == torch.int32 else x
+    ld = -(-w // 4) * 4 + 4
+    x = torch.from_numpy((rng.standard_normal((h + 3, ld)) * 1e4).astype(np.float32))
+    x = (x.to(torch.int32) if dtype == torch.int32 else x)[:, col0:]
+    form = k6.pack_form(h, w).form
     for fn, plain in ((k6.strip_pack_v, k6.strip_pack_v_plain),
                       (k6.strip_unpack_v, k6.strip_unpack_v_plain)):
         ref = x.clone()
         plain(ref, h, w)
-        got = x.to(cuda)
+        got = torch.empty((h + 3, ld), dtype=dtype, device=cuda)[:, col0:]
+        got.copy_(x)
+        before = kernels.KERNELS[fn.__name__].forms.get(form, 0)
         fn(got, h, w)
         torch.cuda.synchronize()
+        assert kernels.KERNELS[fn.__name__].forms[form] == before + 1
         assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
 
 

@@ -136,6 +136,27 @@ def test_strip_steps_and_packing_plain(update, with_halo):
     np.testing.assert_array_equal(x.numpy(), shard.numpy())
 
 
+@pytest.mark.parametrize("h,w", [(2, 1), (1024, 4096), (1024, 37), (7264, 8), (7264, 5),
+                                 (7266, 8), (7266, 37)])
+def test_pack_form(h, w):
+    """K-v's form from h alone: a column band of all h rows in one block's
+    shared memory (227 KB) at the first band of PACK_BANDS that fits, down
+    to 8 columns at 7,264 rows; above that the two-pass form. Odd widths
+    leave a ragged last band."""
+    form = k6.pack_form(h, w)
+    if h > 7264:
+        assert form == k6.PackForm("two_pass", 0, 0)
+        return
+    fits = [b for b in k6.PACK_BANDS if h * b * 4 <= k6.SMEM_BYTES]
+    assert form == k6.PackForm("smem", fits[0], -(-w // fits[0]))
+    assert form.band * h * 4 <= 232_448 and form.band >= 8
+    if h == 7264:
+        assert form.band == 8
+    if h <= 1024:
+        assert form.band == k6.PACK_BANDS[0]
+    assert form.blocks * form.band >= w > (form.blocks - 1) * form.band
+
+
 def test_strip97_step_rounds_as_numpy():
     """K-u's 9/7 plain step: x + c * (a + b) with numpy's float32 rounding
     of each operation (a weak Python scalar)."""
