@@ -623,6 +623,75 @@ def dec_inputs(torch, plan, numbps, npasses, seg_len, buf, idx=None, keep=None, 
     return lanes.contiguous(), data, starts.contiguous()
 
 
+def ki_ptxas():
+    """What ``-Xptxas -v`` reported for csrc/ebcot_dec.cu: registers and
+    spills."""
+    from grok_tpu_torch import kernels
+
+    log = kernels.BUILD_DIR / "ebcot_dec.log"
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if "registers" in ln or "spill" in ln] if log.exists() else []
+
+
+def ki_chain(ec, t_ms, lanes, valid):
+    """K-i's chain figures beside a batch's time ``t_ms``: the decisions
+    (K-c's valid records, ``valid`` per codeblock), the longest chain, the
+    ns a decision of it; and, where the package has it (not the parent
+    tree's), the launch plan of ``lanes``: codeblocks resident per SM,
+    waves, longest first or not."""
+    out = dict(decisions=int(valid.sum()), longest_chain=int(valid.max()),
+               ns_per_decision_longest=t_ms * 1e6 / int(valid.max()))
+    if hasattr(ec, "dec_launch_plan"):
+        plan = ec.dec_launch_plan(lanes)
+        out["plan"] = dict(
+            warps_a_block=plan.layout.warps, warp_bytes=plan.layout.warp_bytes,
+            blocks_per_sm=plan.blocks_per_sm,
+            resident_per_sm=plan.blocks_per_sm * plan.layout.warps, waves=plan.waves,
+            longest_first=plan.order is not None)
+    return out
+
+
+def tile_dec_batch(torch, gt, ec, arr, mesh):
+    """The first K-i launch of DIST53's decode: the 4K image through
+    compress_distributed (held to its pinned digest) and back through
+    decompress_distributed (held to the image, exactly), with a hook on
+    the wrapper that keeps the first call's arguments and result. Returns
+    the arguments, the result, its extents, its bytes bound and each
+    codeblock's decisions (K-c's valid records of the decoded
+    coefficients)."""
+    stream = gt.compress_distributed(gt.Image.from_array(arr), gt.CompressParams(**DIST53),
+                                     mesh=mesh)
+    if not digest_ok(stream, f"dist53 {H}x{W}x{NC}")[1]:
+        raise AssertionError("dist53 stream is not grok_tpu's")
+    calls = []
+    launch = ec.ebcot_decode
+
+    def first(*args):
+        out = launch(*args)
+        if not calls:
+            calls.append((args, out))
+        return out
+
+    ec.ebcot_decode = first
+    try:
+        back = gt.decompress_distributed(stream, mesh=mesh)
+    finally:
+        ec.ebcot_decode = launch
+    if not all(np.array_equal(c.data, arr[:, :, k]) for k, c in enumerate(back.components)):
+        raise AssertionError("dist53 decode is not the image")
+    (data, starts, lanes, seg, ctx, mq, bh, bw), out = calls[0]
+    n = lanes.shape[1]
+    pmax = int(lanes[0].max())
+    sym_lanes = torch.stack([lanes[0], lanes[2], lanes[3], lanes[4],
+                             lanes[5] & 0x3F]).contiguous()
+    sym = ec.ebcot_symbols(out, sym_lanes, ctx, -(-pmax // 4) * 4)
+    valid = (sym >= 0x80).reshape(n, -1).sum(1)
+    samples = int((lanes[2].to(torch.int64) * lanes[3]).sum())
+    return dict(args=[data, starts, lanes, seg, ctx, mq], out=out, bh=bh, bw=bw, valid=valid,
+                bytes=int(lanes[6].to(torch.int64).sum()) + samples * 4 + n * (7 * 4 + 8),
+                n=n, samples=samples)
+
+
 def _device(torch):
     torch.cuda.set_device(0)
     return torch.device("cuda", 0)
@@ -1135,14 +1204,28 @@ def main() -> int:
             err_i = max(err_i, i_checks[label]["max_abs_err"])
     if not whole_ok:
         raise AssertionError("ebcot_decode of the 4K batch is not the batch")
+    chain_4k = ki_chain(ec, t_i["ms"], dec_lanes, valid)
+    del sym, packed, s_sym, buf, dec_data
+    # K-i on the codeblocks of one tile of dist53: the batch of each of the
+    # tiled cells' 12 launches, as the path launches it
+    tb = tile_dec_batch(torch, gt, ec, arr, mesh)
+    if not torch.equal(ec.ebcot_decode(*tb["args"], tb["bh"], tb["bw"]), tb["out"]):
+        raise AssertionError("ebcot_decode of the dist53 tile batch differs from the path's")
+    t_tile = timer.row(lambda: ec.ebcot_decode(*tb["args"], tb["bh"], tb["bw"]),
+                       bytes_=tb["bytes"])
+    tile_row = dict(
+        **t_tile, bytes=tb["bytes"], bound_ms=tb["bytes"] / HBM_BYTES_PER_S * 1e3,
+        shape=f"{tb['n']} codeblocks {tb['bh']}x{tb['bw']}, {tb['samples']} samples "
+              "(DIST53's first tile decode)",
+        **ki_chain(ec, t_tile["ms"], tb["args"][2], tb["valid"]))
+    del tb
     stats["ebcot_decode"] = dict(
         max_abs_err=err_i, **t_i, plain_ms=i_checks["whole"]["plain_ms"], bytes=bytes_i,
         ops=int(valid.sum()),
         shape=f"{n} codeblocks {bh}x{bw}, {samples_i} samples, segments {dec_bytes} B, "
               f"{int(valid.sum())} decisions (at most {int(valid.max())} in one codeblock)",
-        plain_shape=sample, sample_checks=i_checks,
-        ns_per_decision_longest=t_i["ms"] * 1e6 / int(valid.max()))
-    del sym, packed, s_sym, buf, dec_data
+        plain_shape=sample, sample_checks=i_checks, **chain_4k, ptxas=ki_ptxas(),
+        tile_dist53=tile_row)
 
     # K-e / K-f: full 4K batch on the card, the same sample against the
     # plain versions on the CPU

@@ -60,7 +60,7 @@ class Kernel:
     def call(self, *args, form: str | None = None) -> None:
         """Launch through the C entry; raise on a CUDA error code. ``form``
         names the form launched, for a kernel that has several."""
-        fn = getattr(_library(self.source), self.name)
+        fn = getattr(library(self.source), self.name)
         rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
@@ -100,7 +100,7 @@ KERNELS: dict[str, Kernel] = {
                (_P, _P, _P, _I64) + (_I32,) * 10 + (_P,)),
         Kernel("ebcot_decode", "ebcot_dec.cu",
                "grok_tpu/t1/ebcot_jax.py:760 _build_decoder (K5's decoder)",
-               (_P,) * 7 + (_I32,) * 5 + (_P,)),
+               (_P, _I64) + (_P,) * 7 + (_I32,) * 7 + (_P,)),
         Kernel("dc_ict_fwd", "dc_ict.cu",
                "grok_tpu/ops/jax_pipeline.py:69-84 (K2-fwd irreversible: DC shift + "
                "ops/mct.py:48 ict_forward)",
@@ -256,7 +256,8 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def _library(source: str) -> ctypes.CDLL:
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if stale."""
     lib = _LIBS.get(source)
     if lib is None:
         path = _lib_path(source)

@@ -11,7 +11,8 @@ on the coder state, so records + contexts reproduce the stream exactly.
 
 The decoder (K-i ``ebcot_decode``, csrc/ebcot_dec.cu, the port of K5's
 lockstep decoder ``ebcot_jax._build_decoder``) turns codeword segments
-back into coefficients, one thread a codeblock.
+back into coefficients, one warp a codeblock over the reference decoder's
+stripe words.
 
 The per-pass distortions that a layer allocation reads come from K-p
 ``ebcot_pass_dist`` (csrc/ebcot_dist.cu, the counterpart of K5-enc's
@@ -25,6 +26,8 @@ kernel or raises.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -498,8 +501,127 @@ def encode_cblks(coeffs: torch.Tensor, heights, widths, orients,
 
 # ========================================================= K-i: decode
 NUMBPS_LIMIT = 30  # 3 << 29 plus its refinements is the largest int32 magnitude
-DEC_BLOCK_THREADS = 4  # BLOCK_THREADS of csrc/ebcot_dec.cu
-DEC_SMEM_LIMIT = 48 * 1024  # dynamic shared memory without opting in
+MAX_CBLK_SAMPLES = 4096  # T.800's bound on a codeblock's samples (xcb + ycb <= 12)
+DEC_WARPS = 16  # codeblocks (warps) a CUDA block
+DEC_CX_BYTES = 80  # CX_BYTES of csrc/ebcot_dec.cu: a warp's 19 context entries
+DEC_MR_BYTES = 144  # MR_BYTES of csrc/ebcot_dec.cu: a warp's MRP chunk
+DEC_TAB_BYTES = 3448  # the block's static tables in csrc/ebcot_dec.cu
+DEC_SMEM_LIMIT = 232448  # shared memory a block may use on an H100 after opting in (227 KB)
+
+
+@dataclass(frozen=True)
+class DecLayout:
+    """K-i's launch over one batch: a warp's shared state, from the batch's
+    largest codeblock, and the block it sits in."""
+
+    warps: int  # codeblocks a CUDA block
+    warp_bytes: int  # contexts, MRP chunk, column bits, stripe words and a byte for each
+    col_stripes: int  # stripes of column bits a warp holds (codeblocks of width <= 64)
+    smem: int  # dynamic shared bytes a block (the static tables come on top)
+
+
+def dec_layout(max_samples: int, max_words: int, col_stripes: int,
+               warps: int = DEC_WARPS) -> DecLayout:
+    """The shared memory of a K-i launch whose largest codeblock has
+    ``max_samples`` samples and ``max_words`` stripe words (ceil(h / 4) * w),
+    and whose codeblocks of width 64 or less have at most ``col_stripes``
+    stripes. Blocks shrink to the warps whose state fits DEC_SMEM_LIMIT.
+    Raises ValueError for a codeblock over MAX_CBLK_SAMPLES samples."""
+    if max_samples > MAX_CBLK_SAMPLES:
+        raise ValueError(f"ebcot_decode: codeblocks of at most {MAX_CBLK_SAMPLES} samples")
+    warp_bytes = _round_up(DEC_CX_BYTES + DEC_MR_BYTES + 16 * col_stripes
+                           + 5 * max_words, 16)
+    warps = min(warps, (DEC_SMEM_LIMIT - DEC_TAB_BYTES) // warp_bytes)
+    if warps < 1:  # not for any codeblock of MAX_CBLK_SAMPLES or fewer
+        raise ValueError("ebcot_decode: a codeblock's state exceeds shared memory")
+    return DecLayout(warps, warp_bytes, col_stripes, warps * warp_bytes)
+
+
+def dec_block_warps(n: int, sms: int) -> int:
+    """Codeblocks a block for a batch of n on ``sms`` SMs: DEC_WARPS, or
+    fewer where that leaves SMs without a block, so a small batch (one
+    tile's) runs its chains on every SM and not a few to an SM."""
+    return max(1, min(DEC_WARPS, n // max(sms, 1)))
+
+
+def dec_waves(n: int, warps: int, blocks_per_sm: int, sms: int) -> int:
+    """Waves of a launch of n codeblocks, ``warps`` a block, with
+    ``blocks_per_sm`` blocks resident on each of ``sms`` SMs."""
+    return -(-n // (warps * max(blocks_per_sm, 1) * sms)) if n else 0
+
+
+def dec_order(lengths: torch.Tensor, waves: int) -> torch.Tensor | None:
+    """The codeblock each warp decodes: longest first by segment bytes
+    (ties in batch order) when the batch takes more than one wave, so the
+    longest chains start first and the short ones fill the tail; None
+    (batch order) in one wave."""
+    if waves <= 1:
+        return None
+    return torch.sort(lengths, descending=True, stable=True).indices.to(torch.int32)
+
+
+def dec_flat(data: torch.Tensor) -> torch.Tensor:
+    """The flat buffer as the kernel takes it: 4-aligned and a multiple of
+    4 bytes long, at least 4, so an aligned word that holds a readable byte
+    lies inside it; else a copy padded with zeros, which no segment reads
+    (every byte past a codeblock's own reads 0xFF)."""
+    n = data.numel()
+    if n >= 4 and n % 4 == 0 and data.data_ptr() % 4 == 0:
+        return data
+    out = torch.zeros(max(_round_up(n, 4), 4), dtype=torch.uint8, device=data.device)
+    out[:n] = data
+    return out
+
+
+_RESIDENT: dict[tuple, int] = {}
+
+
+def dec_blocks_per_sm(layout: DecLayout) -> int:
+    """Blocks of ``layout`` resident on one SM of the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), cached."""
+    import ctypes
+
+    key = (layout.warps, layout.smem)
+    got = _RESIDENT.get(key)
+    if got is None:
+        fn = kernels.library("ebcot_dec.cu").ebcot_decode_occupancy
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        rc = fn(layout.warps, layout.smem, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"ebcot_decode_occupancy: CUDA error {rc}")
+        got = _RESIDENT[key] = out.value
+    return got
+
+
+@dataclass(frozen=True)
+class DecPlan:
+    """How K-i launches one batch on the card."""
+
+    layout: DecLayout
+    sms: int
+    blocks_per_sm: int  # blocks of the layout resident on one SM
+    waves: int
+    order: torch.Tensor | None  # the codeblock each warp decodes (dec_order)
+
+
+def dec_launch_plan(lanes: torch.Tensor) -> DecPlan:
+    """K-i's launch over the batch of ``lanes`` ([7, n] int32 on a card):
+    the shared-memory layout of its largest codeblock, the blocks resident
+    on an SM, the waves and the launch order. Raises ValueError for a
+    codeblock over MAX_CBLK_SAMPLES samples."""
+    n = lanes.shape[1]
+    hw = lanes[2:4].to(torch.int64)
+    stripes = (hw[0] + 3) // 4
+    max_samples, max_words, col_stripes = torch.stack([
+        (hw[0] * hw[1]).max(), (stripes * hw[1]).max(),
+        torch.where(hw[1] <= 64, stripes, 0).max()]).tolist()
+    sms = torch.cuda.get_device_properties(lanes.device).multi_processor_count
+    layout = dec_layout(max_samples, max_words, col_stripes, dec_block_warps(n, sms))
+    blocks = dec_blocks_per_sm(layout)
+    waves = dec_waves(n, layout.warps, blocks, sms)
+    return DecPlan(layout, sms, blocks, waves, dec_order(lanes[6], waves))
 
 
 def ebcot_decode(data: torch.Tensor, starts: torch.Tensor, lanes: torch.Tensor,
@@ -512,7 +634,8 @@ def ebcot_decode(data: torch.Tensor, starts: torch.Tensor, lanes: torch.Tensor,
     npasses, height, width, orient, style, length); seg_lengths: int32
     [n, max_segs >= 1], the merged codeword segment lengths of TERMALL and
     BYPASS codeblocks; ctx_tab: int32 [198]; mq_tab: int32 [4, 47].
-    Raises UnsupportedFeatureError for numbps > NUMBPS_LIMIT."""
+    Raises UnsupportedFeatureError for numbps > NUMBPS_LIMIT, ValueError for
+    a codeblock over MAX_CBLK_SAMPLES samples."""
     n = lanes.shape[1]
     dev = data.device
     _check(data, "data", torch.uint8, 1, dev)
@@ -536,16 +659,15 @@ def ebcot_decode(data: torch.Tensor, starts: torch.Tensor, lanes: torch.Tensor,
     out = torch.zeros((n, bh, bw), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    hw = lanes[2:4].to(torch.int64)
-    flag_bytes = _round_up(int(((hw[0] + 2) * (hw[1] + 2)).max()), 4)
-    if DEC_BLOCK_THREADS * flag_bytes > DEC_SMEM_LIMIT:
-        raise ValueError("ebcot_decode: codeblocks of at most 4096 samples")
-    if data.numel() == 0:
-        data = torch.zeros(1, dtype=torch.uint8, device=dev)
-    kernels.KERNELS["ebcot_decode"].call(
-        data.data_ptr(), starts.data_ptr(), lanes.data_ptr(), seg_lengths.data_ptr(),
-        ctx_tab.data_ptr(), mq_tab.data_ptr(), out.data_ptr(), n, seg_lengths.shape[1],
-        bh, bw, flag_bytes, kernels.stream_ptr(dev))
+    plan = dec_launch_plan(lanes)
+    lay = plan.layout
+    data = dec_flat(data)
+    args = (data.data_ptr(), data.numel(), starts.data_ptr(), lanes.data_ptr(),
+            seg_lengths.data_ptr(), ctx_tab.data_ptr(), mq_tab.data_ptr(),
+            0 if plan.order is None else plan.order.data_ptr(), out.data_ptr(), n,
+            seg_lengths.shape[1], bh, bw, lay.warps, lay.warp_bytes, lay.col_stripes,
+            kernels.stream_ptr(dev))
+    kernels.KERNELS["ebcot_decode"].call(*args)
     return out
 
 

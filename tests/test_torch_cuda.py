@@ -452,6 +452,163 @@ def test_ebcot_decode_kernel_refuses_bad_inputs(cuda):
     assert _launches("ebcot_decode") == before
 
 
+def _garbage_batch(rng, n, bh, bw, style):
+    """Random codeblock bytes: uniform, runs of 0xFF, and bytes above 0x8F
+    (marker codes) with 0xFF among them; random numbps, passes, extents
+    and, for TERMALL or BYPASS, random merged segment lengths."""
+    lens = rng.integers(0, 90, n)
+    chunks = []
+    for i in range(n):
+        b = rng.integers(0, 256, lens[i]).astype(np.uint8)
+        if i % 4 == 1:
+            b[:] = 0xFF
+        elif i % 4 == 2:
+            b = np.where(rng.random(lens[i]) < 0.3, 0xFF,
+                         rng.integers(0x90, 0x100, lens[i])).astype(np.uint8)
+        elif i % 4 == 3 and lens[i]:
+            b[rng.integers(0, lens[i], 3)] = 0xFF
+        chunks.append(b)
+    nb = rng.integers(1, 16, n)
+    npass = rng.integers(0, 3 * nb - 1)
+    segs = np.zeros((n, 6), dtype=np.int32)
+    if style & 0x05:
+        for i in range(n):
+            cuts = np.sort(rng.integers(0, lens[i] + 1, 5))
+            segs[i] = np.diff(np.concatenate([[0], cuts, [lens[i]]]))
+    lanes = np.stack([nb, npass, rng.integers(1, bh + 1, n), rng.integers(1, bw + 1, n),
+                      rng.integers(0, 4, n), np.full(n, style), lens])
+    return [torch.from_numpy(np.concatenate(chunks)),
+            torch.from_numpy((np.cumsum(lens) - lens).astype(np.int64)),
+            torch.from_numpy(lanes.astype(np.int32)), torch.from_numpy(segs)]
+
+
+@pytest.mark.parametrize("style", [0, 0x01, 0x04, 0x08, 0x20, 0x3F])
+def test_ebcot_decode_kernel_equals_plain_on_garbage(cuda, style):
+    """Random and corrupt segments (0xFF runs, marker codes) decode on the
+    card exactly as in the plain version: the same 0xFF rule past each
+    segment, the same raw and MQ readers on garbage."""
+    rng = np.random.default_rng(300 + style)
+    args = _garbage_batch(rng, 24, 12, 20, style)
+    tabs = ec.device_tables(cuda)
+    got = ec.ebcot_decode(*(a.to(cuda) for a in args), tabs["ctx"], tabs["mq"], 12, 20)
+    torch.cuda.synchronize()
+    want = ec.ebcot_decode_plain(*args, tabs["ctx"].cpu(), tabs["mq"].cpu(), 12, 20)
+    assert torch.equal(got.cpu(), want)
+
+
+def _coded_full(dev, bh, bw, bits, style, seed, cut):
+    """Two full codeblocks of bh x bw written by the port's encoder on the
+    card, as K-i's inputs (numpy; ``cut`` stops each at a seeded pass)."""
+    from test_torch_part1_decode import kernel_inputs
+
+    rng = np.random.default_rng(seed)
+    coeffs = np.clip(rng.laplace(size=(2, bh, bw)) * (1 << bits) / 12,
+                     -(1 << bits) + 1, (1 << bits) - 1).astype(np.int32)
+    coeffs[0, 0, 0] = (1 << bits) - 1
+    hs, ws = np.full(2, bh), np.full(2, bw)
+    ors, styles = rng.integers(0, 4, 2), np.full(2, style)
+    res = ec.encode_cblks(torch.from_numpy(coeffs).to(dev), hs, ws, ors, styles=styles)
+    npasses = res.npasses.cpu().numpy()
+    flat, starts, lens, keep, seg = kernel_inputs(
+        res.data.cpu().numpy(), res.lengths.cpu().numpy(), npasses,
+        res.pass_rates.cpu().numpy(), styles, rng.integers(1, npasses + 1) if cut else None)
+    lanes = np.stack([res.numbps.cpu().numpy(), keep, hs, ws, ors, styles, lens])
+    return flat[:-1], starts, lanes.astype(np.int32), seg
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["whole", "cut"])
+def test_ebcot_decode_kernel_mixed_shapes_one_launch(cuda, cut):
+    """64x64, 4x1024, 1024x4 and 3x8 codeblocks in one launch (a warp's
+    shared state sized by the largest) decode as each shape does in a
+    launch of its own, which equals the plain version."""
+    tabs = ec.device_tables(cuda)
+    T = torch.from_numpy
+    shapes = [(64, 64, 14), (4, 1024, 6), (1024, 4, 6), (3, 8, 12)]
+    parts, flats, starts, lanes, segs, total = [], [], [], [], [], 0
+    for j, (bh, bw, bits) in enumerate(shapes):
+        flat, st, ln, seg = _coded_full(cuda, bh, bw, bits, 0x3F if j % 2 else 0x08,
+                                        500 + 7 * j + cut, cut)
+        args = [T(np.concatenate([flat, np.zeros(1, np.uint8)])), T(st.astype(np.int64)),
+                T(ln), T(seg)]
+        own = ec.ebcot_decode(*(a.to(cuda) for a in args), tabs["ctx"], tabs["mq"], bh, bw)
+        want = ec.ebcot_decode_plain(*args, tabs["ctx"].cpu(), tabs["mq"].cpu(), bh, bw)
+        assert torch.equal(own.cpu(), want)
+        parts.append(want.numpy())
+        flats.append(flat)
+        starts.append(st + total)
+        total += len(flat)
+        lanes.append(ln)
+        segs.append(seg)
+    ms = max(s.shape[1] for s in segs)
+    seg_arr = np.concatenate([np.pad(s, ((0, 0), (0, ms - s.shape[1]))) for s in segs])
+    got = ec.ebcot_decode(T(np.concatenate(flats)).to(cuda),
+                          T(np.concatenate(starts).astype(np.int64)).to(cuda),
+                          T(np.concatenate(lanes, 1)).to(cuda), T(seg_arr).to(cuda),
+                          tabs["ctx"], tabs["mq"], 1024, 1024).cpu().numpy()
+    for j, (bh, bw, _) in enumerate(shapes):
+        blk = got[2 * j:2 * j + 2]
+        assert np.array_equal(blk[:, :bh, :bw], parts[j])
+        assert not blk[:, bh:].any() and not blk[:, :, bw:].any()
+
+
+def test_ebcot_decode_kernel_batch_over_one_wave(cuda):
+    """More codeblocks than the card holds at once: the launch takes them
+    longest first (ec.dec_order) and equals the plain version, whole and
+    cut; the whole decode equals the coefficients."""
+    bh = bw = 8
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    layout = ec.dec_layout(bh * bw, 2 * bw, 2)  # the batch's largest codeblock is 8x8
+    per_wave = layout.warps * ec.dec_blocks_per_sm(layout) * sms
+    n = 2 * per_wave + 17
+    assert ec.dec_waves(n, layout.warps, ec.dec_blocks_per_sm(layout), sms) == 3
+    for cut in (False, True):
+        want, got = _decode_case(cuda, n, bh, bw, 9, 0x3F if cut else 0, 620 + cut, cut)
+        if not cut:
+            assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("style", [0, 0x3F])
+def test_ebcot_decode_kernel_30_planes(cuda, style):
+    """numbps = 30 at 64x64, the largest the wrapper takes: magnitudes up
+    to 3 << 29 in the scaled domain, whole and cut."""
+    want, got = _decode_case(cuda, 2, 64, 64, 30, style, 700 + style, False)
+    assert np.array_equal(got, want)
+    _decode_case(cuda, 2, 64, 64, 30, style, 701 + style, True)
+
+
+def test_ebcot_decode_kernel_empty_codeblocks(cuda):
+    """Codeblocks with no passes, no planes or no bytes among full ones:
+    theirs stay zero, the others decode as in the plain version."""
+    from test_torch_part1_decode import kernel_inputs
+
+    n, bh, bw, bits = 12, 16, 16, 9
+    rng = np.random.default_rng(800)
+    coeffs = np.clip(rng.laplace(size=(n, bh, bw)) * (1 << bits) / 12,
+                     -(1 << bits) + 1, (1 << bits) - 1).astype(np.int32)
+    coeffs[3] = 0  # no planes
+    hs, ws = np.full(n, bh), np.full(n, bw)
+    ors, styles = rng.integers(0, 4, n), np.full(n, 0x3F)
+    res = ec.encode_cblks(torch.from_numpy(coeffs).to(cuda), hs, ws, ors, styles=styles)
+    npasses = res.npasses.cpu().numpy()
+    cut = npasses.copy()
+    cut[[1, 6]] = 0  # no passes kept
+    flat, starts, lens, keep, seg_arr = kernel_inputs(
+        res.data.cpu().numpy(), res.lengths.cpu().numpy(), npasses,
+        res.pass_rates.cpu().numpy(), styles, cut)
+    lanes = np.stack([res.numbps.cpu().numpy(), keep, hs, ws, ors, styles, lens])
+    lanes[1, 9] = 5  # passes but no bytes: every byte reads 0xFF
+    lanes[6, 9] = 0
+    args = [torch.from_numpy(flat), torch.from_numpy(starts.astype(np.int64)),
+            torch.from_numpy(lanes.astype(np.int32)), torch.from_numpy(seg_arr)]
+    tabs = ec.device_tables(cuda)
+    got = ec.ebcot_decode(*(a.to(cuda) for a in args), tabs["ctx"], tabs["mq"], bh, bw).cpu()
+    want = ec.ebcot_decode_plain(*args, tabs["ctx"].cpu(), tabs["mq"].cpu(), bh, bw)
+    assert torch.equal(got, want)
+    assert not got[[1, 3, 6]].any()
+    full = [i for i in range(n) if i not in (1, 3, 6, 9)]
+    assert np.array_equal(got[full].numpy(), coeffs[full])
+
+
 def test_part1_layers_on_card_equal_plain_path(cuda):
     """grok_tpu's 0x3F three-layer stream, decoded on the card and with the
     plain versions at every max_layers."""
