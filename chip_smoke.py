@@ -11,6 +11,9 @@ On a machine with two or more cards, ``python3 chip_smoke.py --cards``
 runs the K6 phases alone (slice_dist, e2e_dist, e2e_frames, slice_strip),
 over every card and then over a virtual mesh of as many shards on the
 first card. ``python3 chip_smoke.py --check`` stops after phase 4.
+``python3 chip_smoke.py --ke-warps`` times K-e's C entry at 1 to 16
+warps a block on the first launch of an HT encode of 256x256x3 and of
+3840x2160x3 (the measurement behind ht_cuda.ENC_WARPS), and stops.
 
 Phases, one JSON line each (any failure exits non-zero before the last
 line):
@@ -27,7 +30,10 @@ line):
               after a seeded pass, and the whole batch decoded back to K-c's
               input; the cut sample with seeded ROI shifts in the style bits
               of every other codeblock); K-e's block energy on the sample
-              (plain on the CPU) and the whole batch (plain on the card); K-p
+              (plain on the CPU) and the whole batch (plain on the card),
+              its C entry alone in turns with its wrapper, its quads, MEL
+              events, stuffed bytes, launch (resident codeblocks, waves)
+              and ptxas, and its bound on the segment bytes alone; K-p
               and K-q on the sample (plain on the CPU) and on the whole 4K
               lossy97 batch (K-p's plain on the card, K-q's on the CPU); K-r
               and K-s (the Part-2 MCT with M3 and back) and K-t (a packed
@@ -623,14 +629,106 @@ def dec_inputs(torch, plan, numbps, npasses, seg_len, buf, idx=None, keep=None, 
     return lanes.contiguous(), data, starts.contiguous()
 
 
-def ki_ptxas():
-    """What ``-Xptxas -v`` reported for csrc/ebcot_dec.cu: registers and
+def ptxas(stem):
+    """What ``-Xptxas -v`` reported for csrc/<stem>.cu: registers and
     spills."""
     from grok_tpu_torch import kernels
 
-    log = kernels.BUILD_DIR / "ebcot_dec.log"
+    log = kernels.BUILD_DIR / f"{stem}.log"
     return [ln.strip() for ln in log.read_text().splitlines()
             if "registers" in ln or "spill" in ln] if log.exists() else []
+
+
+def ke_figures(torch, hc, kernels, timer, batch, h32, w32, htab, mmax, ref):
+    """K-e's figures beside its time on a batch: the C entry alone (its
+    buffers allocated once: no memset, no synchronisation) in turns with
+    the wrapper, its output held to ``ref`` (the wrapper's segments and
+    lengths); the quads, MEL events and stuffed bytes of each stream (the
+    kernel's stats output: MagSgn bytes 0xFF, VLC bytes of 7 bits after
+    one above 0x8F); the launch (warps a block, shared bytes and blocks an
+    SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor, codeblocks
+    resident an SM, waves); ptxas registers and spills."""
+    n, bh, bw = batch.shape
+    dev = batch.device
+    cap, aux = hc.segment_capacity(bh, bw, mmax)
+    out = torch.empty((n, cap), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((n, aux), dtype=torch.uint8, device=dev)
+    lengths = torch.empty(n, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps = hc.ENC_WARPS
+    kernel, stream = kernels.KERNELS["ht_cleanup_enc"], kernels.stream_ptr(dev)
+
+    def c_entry(stats=None):
+        kernel.call(batch.data_ptr(), h32.data_ptr(), w32.data_ptr(), htab.data_ptr(),
+                    out.data_ptr(), scratch.data_ptr(), lengths.data_ptr(), None, n, bh, bw,
+                    cap, aux, warps, stats, stream)
+    entry, wrapper = timer.turns([c_entry, lambda: hc.ht_cleanup_enc(batch, h32, w32, htab,
+                                                                      mmax)])
+    entry_equal = torch.equal(out, ref[0]) and torch.equal(lengths.to(torch.int64), ref[1])
+    stats = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+    c_entry(stats=stats.data_ptr())
+    mel, st_ms, st_vl = stats.sum(0).tolist()
+    blocks, smem = hc.enc_occupancy(bw, warps)
+    quads = int((((h32 + 1) // 2).to(torch.int64) * ((w32 + 1) // 2)).sum())
+    return dict(
+        c_entry_ms=entry["ms"], c_entry_ms_min=entry["min"], c_entry_ms_max=entry["max"],
+        c_entry_equal=entry_equal, wrapper_in_turns_ms=wrapper["ms"], quads=quads,
+        mel_events=mel, stuffed_bytes={"magsgn": st_ms, "vlc": st_vl},
+        launch=dict(warps_a_block=warps, shared_bytes_a_block=smem, blocks_per_sm=blocks,
+                    resident_per_sm=blocks * warps,
+                    waves=-(-n // max(blocks * warps * sms, 1))),
+        ptxas=ptxas("ht_enc"))
+
+
+KE_WARPS = (1, 2, 4, 8, 16)
+
+
+def ke_warps(torch, gt, hc, kernels, dev, smi) -> int:
+    """``--ke-warps``: K-e's C entry in turns at each of KE_WARPS warps a
+    block, on the first launch of compress(ht=True) at 256x256x3 (the size
+    of the slice phases) and at W x H x NC (the 4K batch); each launch's
+    segments and lengths held to the wrapper's on the path."""
+    timer = KernelTimer(torch, dev)
+    launch, calls = hc.ht_cleanup_enc, []
+
+    def keep(*args, **kw):
+        out = launch(*args, **kw)
+        calls.append((args, out))
+        return out
+
+    firsts = []
+    hc.ht_cleanup_enc = keep
+    try:
+        for h, w in ((256, 256), (H, W)):
+            firsts.append(len(calls))
+            gt.compress(gt.Image.from_array(natural_image(h, w, NC)),
+                        gt.CompressParams(num_resolutions=6, ht=True))
+    finally:
+        hc.ht_cleanup_enc = launch
+    kernel, stream = kernels.KERNELS["ht_cleanup_enc"], kernels.stream_ptr(dev)
+    for image, first in zip(("256x256x3", f"{W}x{H}x{NC}"), firsts):
+        (coeffs, hs, ws, tab, mmax), ref = calls[first][0][:5], calls[first][1]
+        n, bh, bw = coeffs.shape
+        cap, aux = hc.segment_capacity(bh, bw, mmax)
+        bufs = {wp: (torch.empty((n, cap), dtype=torch.uint8, device=dev),
+                     torch.empty((n, aux), dtype=torch.uint8, device=dev),
+                     torch.empty(n, dtype=torch.int32, device=dev)) for wp in KE_WARPS}
+
+        def entry(wp):
+            out, scratch, lengths = bufs[wp]
+            kernel.call(coeffs.data_ptr(), hs.data_ptr(), ws.data_ptr(), tab.data_ptr(),
+                        out.data_ptr(), scratch.data_ptr(), lengths.data_ptr(), None, n, bh,
+                        bw, cap, aux, wp, None, stream)
+        times = timer.turns([lambda wp=wp: entry(wp) for wp in KE_WARPS])
+        equal = all(torch.equal(o, ref[0]) and torch.equal(ln.to(torch.int64), ref[1])
+                    for o, _, ln in bufs.values())
+        emit({"phase": "ke_warps", "image": image, "codeblocks": n, "shape": f"{bh}x{bw}",
+              "launches_in_encode": (firsts + [len(calls)])[firsts.index(first) + 1] - first,
+              "equal": equal, **{f"warps_{wp}": t for wp, t in zip(KE_WARPS, times)}})
+        if not equal:
+            raise AssertionError(f"ke_warps {image}: a launch differs from the wrapper's")
+    print(smi, flush=True)
+    return 0
 
 
 def ki_chain(ec, t_ms, lanes, valid):
@@ -1004,6 +1102,8 @@ def main() -> int:
 
     if "--cards" in sys.argv[1:]:
         return cards_main(torch, gt, mesh, dev, smi, kind, lap, walls)
+    if "--ke-warps" in sys.argv[1:]:
+        return ke_warps(torch, gt, hc, kernels, dev, smi)
 
     # ---- 3. kernels
     emit({"phase": "kernels", "path_kernels": [
@@ -1224,7 +1324,7 @@ def main() -> int:
         ops=int(valid.sum()),
         shape=f"{n} codeblocks {bh}x{bw}, {samples_i} samples, segments {dec_bytes} B, "
               f"{int(valid.sum())} decisions (at most {int(valid.max())} in one codeblock)",
-        plain_shape=sample, sample_checks=i_checks, **chain_4k, ptxas=ki_ptxas(),
+        plain_shape=sample, sample_checks=i_checks, **chain_4k, ptxas=ptxas("ebcot_dec"),
         tile_dist53=tile_row)
 
     # K-e / K-f: full 4K batch on the card, the same sample against the
@@ -1236,8 +1336,11 @@ def main() -> int:
     hbuf, hlen = hc.ht_cleanup_enc(batch, h32, w32, htab, mmax)
     samples = int((h32.to(torch.int64) * w32).sum())  # inside the codeblocks
     seg_bytes = int(hlen.sum())
-    t_e = timer.row(lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax),
-                    bytes_=samples * 4 + seg_bytes + n * 8)
+    # K-e reads the samples and writes every byte of the segment rows (the
+    # zeros past each segment too) and the int32 lengths
+    bytes_e = samples * 4 + hbuf.numel() + n * 4
+    t_e = timer.row(lambda: hc.ht_cleanup_enc(batch, h32, w32, htab, mmax), bytes_=bytes_e)
+    ke = ke_figures(torch, hc, kernels, timer, batch, h32, w32, htab, mmax, (hbuf, hlen))
     # with the block energy of rate control: the same segments, and the
     # energies of the plain version (on the card)
     e_buf, e_len, energy = hc.ht_cleanup_enc(batch, h32, w32, htab, mmax, want_energy=True)
@@ -1272,12 +1375,19 @@ def main() -> int:
         s_data.cpu(), s_len32.cpu(), s_h.cpu(), s_w.cpu(), bh, bw))
     err_f = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
                 for a, b in zip(k_dec, p_dec))
+    if not ke["c_entry_equal"]:
+        err_e = max(err_e, 1)
+    # the bytes the function must move: the samples, the segments up to
+    # their lengths and the lengths (the zeros past a segment are read by
+    # nothing on the path)
+    seg_bound = (samples * 4 + seg_bytes + n * 4) / HBM_BYTES_PER_S * 1e3
     stats["ht_cleanup_enc"] = dict(
         max_abs_err=err_e, **t_e, plain_ms=plain_ms_e,
-        bytes=samples * 4 + seg_bytes + n * 8, ops=samples,
-        shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B, "
-              f"MagSgn fields <= {mmax} bits", plain_shape=sample,
-        ms_with_energy=ms_e_energy, energy_equal=energy_ok)
+        bytes=bytes_e, ops=samples, bound_ms_segments=seg_bound,
+        x_bound_segments=t_e["ms"] / seg_bound,
+        shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B of "
+              f"rows of {hbuf.shape[1]} B, MagSgn fields <= {mmax} bits", plain_shape=sample,
+        ms_with_energy=ms_e_energy, energy_equal=energy_ok, **ke)
     stats["ht_cleanup_dec"] = dict(
         max_abs_err=err_f, **t_f, plain_ms=plain_ms_f,
         bytes=seg_bytes + samples * 4 + n, ops=samples,
@@ -2067,6 +2177,8 @@ def main() -> int:
         {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",
          "replaces": k.replaces, "launches": counts[k.name],
          **({"forms": forms[k.name]} if k.name in forms else {}),
+         **{key: stats[k.name][key] for key in ("bound_ms_segments", "x_bound_segments")
+            if key in stats[k.name]},
          "max_abs_err": stats[k.name]["max_abs_err"], "ms": stats[k.name]["ms"],
          "l2": stats[k.name]["l2"], "plain_ms": stats[k.name]["plain_ms"],
          "bound_ms": stats[k.name]["bound_ms"], "bound_by": stats[k.name]["bound_by"],

@@ -88,7 +88,7 @@ KERNELS: dict[str, Kernel] = {
         Kernel("ht_cleanup_enc", "ht_enc.cu",
                "grok_tpu/t1/ht_jax.py:217 (K3: _encode_device, with the host "
                "_stuff_host :503 and _compact :560; block energy :465)",
-               (_P,) * 8 + (_I32,) * 5 + (_P,), FLOAT_FLAGS),
+               (_P,) * 8 + (_I32,) * 6 + (_P, _P), FLOAT_FLAGS),
         Kernel("ht_cleanup_dec", "ht_dec.cu",
                "grok_tpu/t1/ht_jax_dec.py:233 (K4: _decode_device)",
                (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P)),

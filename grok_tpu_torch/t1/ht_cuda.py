@@ -84,6 +84,26 @@ def segment_capacity(bh: int, bw: int, mmax: int) -> tuple[int, int]:
 
 
 # ==================================================== K-e: cleanup encode
+ENC_WARPS = 16  # codeblocks (warps) a CUDA block of K-e (PERF.md §6: chip_smoke.py --ke-warps)
+
+
+def enc_occupancy(bw: int, warps: int) -> tuple[int, int]:
+    """(blocks resident on one SM, shared bytes a block) of a K-e launch of
+    ``warps`` codeblocks a block, bw wide (cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor on the current card)."""
+    import ctypes
+
+    fn = kernels.library("ht_enc.cu").ht_enc_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(bw, warps, ctypes.byref(blocks), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"ht_enc_occupancy: CUDA error {rc}")
+    return blocks.value, smem.value
+
+
 def ht_cleanup_enc(coeffs: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
                    tab: torch.Tensor, mmax: int, want_energy: bool = False):
     """Cleanup segments of a codeblock batch: (buf [n, cap] uint8, zero
@@ -109,16 +129,16 @@ def ht_cleanup_enc(coeffs: torch.Tensor, heights: torch.Tensor, widths: torch.Te
         return (*out, block_energy_plain(coeffs, heights, widths)) if want_energy else out
     if dev.type != "cuda":
         raise ValueError(f"ht_cleanup_enc: unsupported device {dev}")
-    buf = torch.zeros((n, cap), dtype=torch.uint8, device=dev)
+    buf = torch.empty((n, cap), dtype=torch.uint8, device=dev)  # the kernel writes every byte
     scratch = torch.empty((n, aux), dtype=torch.uint8, device=dev)
     lengths = torch.empty(n, dtype=torch.int32, device=dev)
     energy = torch.empty(n, dtype=torch.float64, device=dev) if want_energy else None
     kernels.KERNELS["ht_cleanup_enc"].call(
         coeffs.data_ptr(), heights.data_ptr(), widths.data_ptr(), tab.data_ptr(),
         buf.data_ptr(), scratch.data_ptr(), lengths.data_ptr(),
-        energy.data_ptr() if want_energy else None, n, bh, bw, cap, aux,
+        energy.data_ptr() if want_energy else None, n, bh, bw, cap, aux, ENC_WARPS, None,
         kernels.stream_ptr(dev))
-    if bool((lengths < 0).any()):
+    if n and int(lengths.min()) < 0:
         raise RuntimeError("ht_cleanup_enc: codeblock segment buffer overflow")
     out = (buf, lengths.to(torch.int64))
     return (*out, energy) if want_energy else out
@@ -205,6 +225,15 @@ def _int32(t, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(t, device=dev).to(torch.int32).contiguous()
 
 
+def largest_magnitude(coeffs: torch.Tensor) -> int:
+    """The largest |v| of an int32 tensor (0 when empty): one min/max pass
+    and one synchronisation, no |v| tensor."""
+    if not coeffs.numel():
+        return 0
+    lo, hi = torch.stack(torch.aminmax(coeffs)).tolist()
+    return max(-lo, hi)
+
+
 def encode_cblks(coeffs: torch.Tensor, heights, widths,
                  clock: StageClock | None = None, want_dist: bool = True) -> T1EncodeResult:
     """HT cleanup-only encode of a codeblock batch on the device holding
@@ -216,7 +245,7 @@ def encode_cblks(coeffs: torch.Tensor, heights, widths,
     clock = clock or StageClock(coeffs.device, None)
     dev = coeffs.device
     coeffs = coeffs.to(torch.int32).contiguous()
-    mx = int(coeffs.abs().max()) if coeffs.numel() else 0
+    mx = largest_magnitude(coeffs)
     if mx >= ENC_MAG_LIMIT:
         raise UnsupportedFeatureError(
             f"HT encode of magnitudes >= 2**24 (largest {mx})")

@@ -12,11 +12,14 @@ compared on their float32 bits (K6's 9/7 steps and horizontal halves too),
 and the float64 sums of rate control (K-p, K-e's energy, K-q) run in their
 plain versions' order; K-w's float64 sum of squares is exact in any order."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import grok_tpu_torch as gt
+from grok_tpu_torch import kernels
 from grok_tpu_torch.ops import transform as tr
 from grok_tpu_torch.t1 import ebcot_cuda as ec
 from grok_tpu_torch.t1 import ht as port_ht
@@ -272,6 +275,81 @@ def test_ht_encode_kernel_raises_on_overflow(cuda):
         hc.ht_cleanup_enc(c, h, w, hc.ht_tables(torch.device("cpu")), 1)
     with pytest.raises(RuntimeError, match="overflow"):
         hc.ht_cleanup_enc(c.to(cuda), h.to(cuda), w.to(cuda), hc.ht_tables(cuda), 1)
+
+
+@functools.lru_cache(maxsize=1)
+def _ht_stress_cases():
+    """Cases of K-e's warp design: rows of several 32-quad chunks (up to 512
+    quads), tall narrow codeblocks, 25-bit MagSgn fields whose energies pass
+    2^53, runs of 0xFF in MagSgn, VLC bytes stuffed after bytes above 0x8F,
+    long MEL runs, all-zero codeblocks among full ones, and a batch larger
+    than one wave of the card."""
+    from test_torch_ke_host import vlc_stress
+
+    rng = np.random.default_rng(40)
+    top = (1 << 24) - 1
+    big = rng.choice([top, -top, top - 1, -(top - 3), top - 7], size=(4, 64, 64))
+    ff = np.zeros((8, 64, 64), dtype=np.int64)
+    for i, k in enumerate((1, 3, 7, 8, 12, 15, 20, 23)):
+        ff[i] = -(1 << k)
+    ff[4::2, ::3, ::5] = -(1 << 6)
+    sparse = np.zeros((6, 64, 64), dtype=np.int64)
+    sparse[0, 5, 7], sparse[0, 40, 3], sparse[0, 63, 63] = 3, -200, 1
+    sparse[1, ::9, ::11] = 5
+    sparse[2:] = rng.integers(-40, 41, (4, 64, 64)) * (rng.random((4, 64, 64)) < 0.01)
+    mixed = _ht_batch(41, 12, 64, 64, 900, 0.9)
+    for i in (1, 4, 5, 9):
+        mixed[0][i] = 0
+    full = lambda n, v: torch.full((n,), v, dtype=torch.int32)  # noqa: E731
+    as32 = lambda a: torch.from_numpy(a.astype(np.int32))  # noqa: E731
+    return {
+        "4x1024": _ht_batch(42, 4, 4, 1024, 500, 0.7),
+        "1024x4": _ht_batch(43, 3, 1024, 4, 500, 0.7),
+        "2x1024 ragged": _ht_batch(44, 6, 2, 1024, 60, 0.8, ragged=True),
+        "25-bit MagSgn": (as32(big), full(4, 64), full(4, 64)),
+        "MagSgn 0xFF": (as32(ff), full(8, 64), full(8, 64)),
+        "VLC 0x8F/0x7F": (vlc_stress(16, 64, 64), full(16, 64), full(16, 64)),
+        "MEL runs": (as32(sparse), full(6, 64), full(6, 64)),
+        "zero among full": tuple(mixed),
+        "more than a wave": _ht_batch(45, 9000, 8, 8, 40, 0.6, ragged=True),
+    }
+
+
+@pytest.mark.parametrize("case", ["4x1024", "1024x4", "2x1024 ragged", "25-bit MagSgn",
+                                  "MagSgn 0xFF", "VLC 0x8F/0x7F", "MEL runs",
+                                  "zero among full", "more than a wave"])
+def test_ht_encode_kernel_equals_plain_stress(cuda, case):
+    """K-e's segments, lengths and energies equal the plain version's, and
+    K-f gives the samples back."""
+    c, h, w = _ht_stress_cases()[case]
+    bh, bw = c.shape[1:]
+    mmax = max((2 * int(c.abs().max()) - 1).bit_length(), 1)
+    c_d, h_d, w_d, tab = c.to(cuda), h.to(cuda), w.to(cuda), hc.ht_tables(cuda)
+    buf, lens, energy = hc.ht_cleanup_enc(c_d, h_d, w_d, tab, mmax, want_energy=True)
+    rbuf, rlen = hc.ht_cleanup_enc(c, h, w, hc.ht_tables(torch.device("cpu")), mmax)
+    assert torch.equal(lens.cpu(), rlen) and torch.equal(buf.cpu(), rbuf)
+    assert torch.equal(energy.cpu(), hc.block_energy_plain(c, h, w))
+    if case == "25-bit MagSgn":
+        assert float(energy.max()) > 2.0 ** 53
+    # the kernel's stats (MEL events, stuffed MagSgn and VLC bytes) through
+    # its C entry, with buffers of its own
+    cap, aux = hc.segment_capacity(bh, bw, mmax)
+    out, scratch = (torch.empty((c.shape[0], k), dtype=torch.uint8, device=cuda)
+                    for k in (cap, aux))
+    lengths = torch.empty(c.shape[0], dtype=torch.int32, device=cuda)
+    stats = torch.zeros((c.shape[0], 3), dtype=torch.int32, device=cuda)
+    kernels.KERNELS["ht_cleanup_enc"].call(
+        c_d.data_ptr(), h_d.data_ptr(), w_d.data_ptr(), tab.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), lengths.data_ptr(), None, c.shape[0], bh, bw, cap, aux,
+        hc.ENC_WARPS, stats.data_ptr(), kernels.stream_ptr(cuda))
+    assert torch.equal(out, buf) and torch.equal(lengths.to(torch.int64), lens)
+    stats = stats.sum(0).tolist()
+    assert {"MagSgn 0xFF": stats[1], "VLC 0x8F/0x7F": stats[2],
+            "MEL runs": stats[0]}.get(case, 1) > 0, stats
+    data = buf[:, :max(int(rlen.max()), 2)].contiguous()
+    dec, stopped = hc.ht_cleanup_dec(data, lens.to(torch.int32), h.to(cuda), w.to(cuda),
+                                     hc.ht_tables(cuda), bh, bw)
+    assert not bool(stopped.any()) and torch.equal(dec.cpu(), c)
 
 
 @pytest.mark.parametrize("seed", [109, 110])

@@ -2,113 +2,27 @@
 its plain version on the CPU, exactly.
 
 There is no nvcc here, so the kernel's source up to its host entry points
-is built by g++ against a small shim of the CUDA builtins it uses: every
-CUDA thread is a std::thread, __syncthreads and __syncwarp are barriers,
-the warp shuffles and ballot go through a per-warp exchange array, and
-every global load and atomic is checked against the buffers of the launch
-(an access outside them aborts). The launch follows the wrapper's layout
-(ec.dec_layout, ec.dec_flat). What this
-cannot show: timing, occupancy, and anything nvcc compiles differently
-from g++; the `cuda` tests of tests/test_torch_cuda.py hold the card."""
+is built by g++ against the shim of tests/cuda_host_shim.py (a std::thread
+a CUDA thread, barriers for __syncthreads and __syncwarp, every global load
+and atomic checked against the launch's buffers). The launch follows the
+wrapper's layout (ec.dec_layout, ec.dec_flat). What this cannot show:
+timing, occupancy, and anything nvcc compiles differently from g++; the
+`cuda` tests of tests/test_torch_cuda.py hold the card."""
 
 import ctypes
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from cuda_host_shim import SHIM_GLOBALS, build
 from grok_tpu_torch import kernels
 from grok_tpu_torch.t1 import ebcot_cuda as ec
-
-SHIM = r"""
-#pragma once
-#include <stdint.h>
-#include <atomic>
-#include <condition_variable>
-#include <cstdio>
-#include <cstdlib>
-#include <mutex>
-#include <thread>
-#include <vector>
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __shared__
-#define __restrict__
-#define __align__(n) __attribute__((aligned(n)))
-struct dim3_ { unsigned x, y, z; };
-extern thread_local dim3_ threadIdx, blockIdx;
-extern dim3_ blockDim;
-template <class T> inline T min(T a, T b) { return a < b ? a : b; }
-template <class T> inline T max(T a, T b) { return a > b ? a : b; }
-struct Range { const char *lo, *hi; };
-extern std::vector<Range> g_ranges;
-inline void chk(const void* p, size_t n) {
-    const char* c = (const char*)p;
-    for (auto& r : g_ranges) if (c >= r.lo && c + n <= r.hi) return;
-    fprintf(stderr, "access outside the launch's buffers: %p\n", p);
-    abort();
-}
-template <class T> inline T __ldg(const T* p) { chk(p, sizeof(T)); return *p; }
-template <class T> inline T __ldcg(const T* p) { chk(p, sizeof(T)); return *p; }
-inline int atomicAdd(int* p, int v) { chk(p, 4); int o = *p; *p = o + v; return o; }
-inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
-inline int __ffs(int x) { return __builtin_ffs(x); }
-inline int __ffsll(long long x) { return __builtin_ffsll(x); }
-inline int __popc(unsigned x) { return __builtin_popcount(x); }
-inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
-    uint64_t v = ((uint64_t)y << 32) | x;
-    unsigned r = 0;
-    for (int i = 0; i < 4; ++i) r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
-    return r;
-}
-inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
-struct Barrier {
-    std::mutex m;
-    std::condition_variable cv;
-    int n = 0, count = 0, gen = 0;
-    void wait() {
-        std::unique_lock<std::mutex> l(m);
-        int g = gen;
-        if (++count == n) { count = 0; ++gen; cv.notify_all(); }
-        else cv.wait(l, [&] { return gen != g; });
-    }
-};
-struct Exch { int v[32]; };
-extern thread_local Barrier* t_warp;
-extern thread_local Exch* t_exch;
-extern Barrier* g_block;
-inline void __syncwarp() { t_warp->wait(); }
-inline void __syncthreads() { g_block->wait(); }
-inline int __shfl_up_sync(unsigned, int v, int d) {
-    int lane = threadIdx.x & 31; t_exch->v[lane] = v; t_warp->wait();
-    int r = lane >= d ? t_exch->v[lane - d] : v; t_warp->wait(); return r;
-}
-inline int __shfl_sync(unsigned, int v, int src) {
-    int lane = threadIdx.x & 31; t_exch->v[lane] = v; t_warp->wait();
-    int r = t_exch->v[src]; t_warp->wait(); return r;
-}
-inline unsigned __ballot_sync(unsigned, int p) {
-    int lane = threadIdx.x & 31; t_exch->v[lane] = p != 0; t_warp->wait();
-    unsigned r = 0;
-    for (int i = 0; i < 32; ++i) r |= (unsigned)t_exch->v[i] << i;
-    t_warp->wait(); return r;
-}
-"""
 
 HARNESS = r"""
 #include "shim.h"
 #include "kernel.inc"
-thread_local dim3_ threadIdx, blockIdx;
-dim3_ blockDim;
-thread_local Barrier* t_warp;
-thread_local Exch* t_exch;
-Barrier* g_block;
-alignas(16) uint8_t s_dyn[1 << 20];
-std::vector<Range> g_ranges;
+""" + SHIM_GLOBALS + r"""alignas(16) uint8_t s_dyn[1 << 20];
 extern "C" int host_decode(const void* data, int64_t nbytes, const void* starts, const void* lanes,
                            const void* segl, const void* ctx_tab, const void* mq_tab,
                            const void* order, void* out, int n, int max_segs, int bh, int bw,
@@ -147,19 +61,8 @@ extern "C" int host_decode(const void* data, int64_t nbytes, const void* starts,
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel's device code for the host")
-    d = tmp_path_factory.mktemp("ki_host")
-    src = (kernels.CSRC / "ebcot_dec.cu").read_text()
-    body = src[:src.index("static cudaError_t dec_attributes")]
-    (d / "kernel.inc").write_text(body.replace("#include <cuda_runtime.h>", ""))
-    (d / "shim.h").write_text(SHIM)
-    (d / "harness.cpp").write_text(HARNESS)
-    out = d / "libki.so"
-    subprocess.run([gxx, "-O1", "-std=c++17", "-fPIC", "-shared", "-pthread", "-I", str(d),
-                    "-o", str(out), str(d / "harness.cpp")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    lib = build(tmp_path_factory.mktemp("ki_host"), (kernels.CSRC / "ebcot_dec.cu").read_text(),
+                "static cudaError_t dec_attributes", HARNESS, "ki")
     lib.host_decode.argtypes = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 7
                                 + [ctypes.c_int] * 7)
     return lib
