@@ -33,7 +33,12 @@ line):
               (plain on the CPU) and the whole batch (plain on the card),
               its C entry alone in turns with its wrapper, its quads, MEL
               events, stuffed bytes, launch (resident codeblocks, waves)
-              and ptxas, and its bound on the segment bytes alone; K-p
+              and ptxas, and its bound on the segment bytes alone; K-f's
+              sample also cut at seeded lengths and with seeded bytes
+              flipped (stops and values against the plain version), its C
+              entry in turns with its wrapper, its launch and ptxas, and
+              its bound on the bytes inside the codeblocks beside that on
+              the rows it writes whole; K-p
               and K-q on the sample (plain on the CPU) and on the whole 4K
               lossy97 batch (K-p's plain on the card, K-q's on the CPU); K-r
               and K-s (the Part-2 MCT with M3 and back) and K-t (a packed
@@ -678,6 +683,51 @@ def ke_figures(torch, hc, kernels, timer, batch, h32, w32, htab, mmax, ref):
                     resident_per_sm=blocks * warps,
                     waves=-(-n // max(blocks * warps * sms, 1))),
         ptxas=ptxas("ht_enc"))
+
+
+def kf_figures(torch, hc, kernels, timer, data, lens, h32, w32, htab, bh, bw, ref):
+    """K-f's figures beside its time on a batch: the C entry alone (its
+    buffers allocated once, no synchronisation) in turns with the wrapper,
+    its output held to ``ref`` (the batch, no codeblock stopped); the
+    launch (warps a block, shared bytes and blocks an SM from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, codeblocks resident an
+    SM, waves); ptxas registers and spills."""
+    n, L = data.shape
+    dev = data.device
+    out = torch.empty((n, bh, bw), dtype=torch.int32, device=dev)
+    stopped = torch.empty(n, dtype=torch.uint8, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kernel, stream = kernels.KERNELS["ht_cleanup_dec"], kernels.stream_ptr(dev)
+    args = (data.data_ptr(), lens.data_ptr(), h32.data_ptr(), w32.data_ptr(), htab.data_ptr())
+
+    def c_entry():
+        kernel.call(*args, out.data_ptr(), stopped.data_ptr(), n, L, bh, bw, stream)
+
+    def wrapper():
+        hc.ht_cleanup_dec(data, lens, h32, w32, htab, bh, bw)
+    times = timer.turns([c_entry, wrapper])
+    return dict(
+        c_entry_ms=times[0]["ms"], c_entry_ms_min=times[0]["min"],
+        c_entry_ms_max=times[0]["max"],
+        c_entry_equal=torch.equal(out, ref) and not bool(stopped.any()),
+        wrapper_in_turns_ms=times[1]["ms"],
+        quads=int((((h32 + 1) // 2).to(torch.int64) * ((w32 + 1) // 2)).sum()),
+        launch=kf_launch(hc, n, bw, sms), ptxas=ptxas("ht_dec"))
+
+
+def kf_launch(hc, n, bw, sms):
+    """A K-f launch of n codeblocks: warps and codeblocks a block, shared
+    bytes and blocks resident an SM (cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor), codeblocks on the busiest SM with the blocks dealt in
+    turn, and the waves that take."""
+    blocks, smem = hc.dec_occupancy(bw)
+    per_block = hc.DEC_GROUPS * hc.DEC_WARPS
+    blocks_all = -(-n // per_block)
+    per_sm = -(-blocks_all // sms)  # blocks on the busiest SM
+    return dict(warps_a_block=hc.DEC_WARPS, codeblocks_a_block=per_block,
+                shared_bytes_a_block=smem, blocks_per_sm=blocks,
+                resident_per_sm=blocks * per_block, busiest_sm_codeblocks=per_sm * per_block,
+                waves=-(-per_sm // max(blocks, 1)))
 
 
 KE_WARPS = (1, 2, 4, 8, 16)
@@ -1352,11 +1402,16 @@ def main() -> int:
     hdata = hbuf[:, :int(hlen.max())].contiguous()
     hlen32 = hlen.to(torch.int32)
     dec, dec_stopped = hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw)
+    # the bytes K-f must move: the segments up to their lengths, the samples
+    # inside the codeblocks and a flag a codeblock (the rows' zeros outside
+    # them, which the kernel writes too, are read by nothing on the path)
+    bytes_f = seg_bytes + samples * 4 + n
     t_f = timer.row(lambda: hc.ht_cleanup_dec(hdata, hlen32, h32, w32, htab, bh, bw),
-                    bytes_=seg_bytes + samples * 4 + n)
+                    bytes_=bytes_f)
     if bool(dec_stopped.any()) or not torch.equal(dec, batch):
         raise AssertionError("ht_cleanup_dec of the 4K batch is not the batch")
     del dec, dec_stopped
+    kf = kf_figures(torch, hc, kernels, timer, hdata, hlen32, h32, w32, htab, bh, bw, batch)
     s_h, s_w = h32[idx].contiguous(), w32[idx].contiguous()
     k_enc = hc.ht_cleanup_enc(s_batch, s_h, s_w, htab, mmax)
     plain_ms_e, p_enc = cpu_ms(lambda: hc.ht_cleanup_enc_plain(
@@ -1375,6 +1430,28 @@ def main() -> int:
         s_data.cpu(), s_len32.cpu(), s_h.cpu(), s_w.cpu(), bh, bw))
     err_f = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
                 for a, b in zip(k_dec, p_dec))
+    # the sample cut at seeded lengths, and with seeded bytes flipped: the
+    # decode stops where the plain version's does, keeping what it wrote
+    rng_f = np.random.default_rng(13)
+    s_lens = s_len32.cpu().numpy()
+    cut_len = np.where(s_lens > 2, rng_f.integers(2, np.maximum(s_lens, 2) + 1), s_lens)
+    flipped = s_data.cpu().numpy().copy()
+    for r, ln in enumerate(s_lens):
+        for _ in range(3 if ln else 0):
+            flipped[r, rng_f.integers(0, ln)] ^= rng_f.integers(1, 256, dtype=np.uint8)
+    f_checks = {}
+    for label, f_data, f_len in (("cut", s_data.cpu(), torch.from_numpy(cut_len)),
+                                 ("flipped", torch.from_numpy(flipped), s_len32.cpu())):
+        f_len = f_len.to(torch.int32)
+        k_out, k_stop = hc.ht_cleanup_dec(f_data.to(dev), f_len.to(dev), s_h, s_w, htab, bh, bw)
+        p_out, p_stop = hc.ht_cleanup_dec_plain(f_data, f_len, s_h.cpu(), s_w.cpu(), bh, bw)
+        f_checks[label] = dict(
+            max_abs_err=int((k_out.cpu().to(torch.int64) - p_out).abs().max())
+            + int(not torch.equal(k_stop.cpu(), p_stop)),
+            stopped=int(p_stop.sum()), bytes=int(f_len.sum()))
+        err_f = max(err_f, f_checks[label]["max_abs_err"])
+    if not kf["c_entry_equal"]:
+        err_f = max(err_f, 1)
     if not ke["c_entry_equal"]:
         err_e = max(err_e, 1)
     # the bytes the function must move: the samples, the segments up to
@@ -1388,11 +1465,15 @@ def main() -> int:
         shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B of "
               f"rows of {hbuf.shape[1]} B, MagSgn fields <= {mmax} bits", plain_shape=sample,
         ms_with_energy=ms_e_energy, energy_equal=energy_ok, **ke)
+    # beside it, the bound on what the kernel writes: every sample of the
+    # output rows, read with the segments, the heights, widths and lengths
+    rows_bound = (seg_bytes + n * bh * bw * 4 + n * 13) / HBM_BYTES_PER_S * 1e3
     stats["ht_cleanup_dec"] = dict(
         max_abs_err=err_f, **t_f, plain_ms=plain_ms_f,
-        bytes=seg_bytes + samples * 4 + n, ops=samples,
-        shape=f"{n} codeblocks {bh}x{bw}, {samples} samples, segments {seg_bytes} B",
-        plain_shape=sample)
+        bytes=bytes_f, ops=samples, bound_ms_rows=rows_bound,
+        x_bound_rows=t_f["ms"] / rows_bound,
+        shape=f"{n} codeblocks {bh}x{bw} (rows written whole), {samples} samples, "
+              f"segments {seg_bytes} B", plain_shape=sample, sample_checks=f_checks, **kf)
     del hbuf, hdata, batch
 
     # K-g / K-h on the whole image, from the packed planes back to samples
@@ -2177,7 +2258,8 @@ def main() -> int:
         {"name": k.name, "route": "cuda", "source": f"grok_tpu_torch/csrc/{k.source}",
          "replaces": k.replaces, "launches": counts[k.name],
          **({"forms": forms[k.name]} if k.name in forms else {}),
-         **{key: stats[k.name][key] for key in ("bound_ms_segments", "x_bound_segments")
+         **{key: stats[k.name][key] for key in ("bound_ms_segments", "x_bound_segments",
+                                                "bound_ms_rows", "x_bound_rows")
             if key in stats[k.name]},
          "max_abs_err": stats[k.name]["max_abs_err"], "ms": stats[k.name]["ms"],
          "l2": stats[k.name]["l2"], "plain_ms": stats[k.name]["plain_ms"],

@@ -87,21 +87,26 @@ def segment_capacity(bh: int, bw: int, mmax: int) -> tuple[int, int]:
 ENC_WARPS = 16  # codeblocks (warps) a CUDA block of K-e (PERF.md §6: chip_smoke.py --ke-warps)
 
 
-def enc_occupancy(bw: int, warps: int) -> tuple[int, int]:
-    """(blocks resident on one SM, shared bytes a block) of a K-e launch of
-    ``warps`` codeblocks a block, bw wide (cudaOccupancyMaxActiveBlocksPer
-    Multiprocessor on the current card)."""
+def _occupancy(source: str, entry: str, *shape: int) -> tuple[int, int]:
+    """(blocks resident on one SM, shared bytes a block) of a launch of the
+    given shape (its int arguments), as the C entry ``entry`` of csrc/
+    ``source`` answers it (cudaOccupancyMaxActiveBlocksPerMultiprocessor on
+    the current card)."""
     import ctypes
 
-    fn = kernels.library("ht_enc.cu").ht_enc_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int)]
+    fn = getattr(kernels.library(source), entry)
+    fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    rc = fn(bw, warps, ctypes.byref(blocks), ctypes.byref(smem))
+    rc = fn(*shape, ctypes.byref(blocks), ctypes.byref(smem))
     if rc != 0:
-        raise RuntimeError(f"ht_enc_occupancy: CUDA error {rc}")
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
     return blocks.value, smem.value
+
+
+def enc_occupancy(bw: int, warps: int) -> tuple[int, int]:
+    """_occupancy of a K-e launch (a codeblock a warp)."""
+    return _occupancy("ht_enc.cu", "ht_enc_occupancy", bw, warps)
 
 
 def ht_cleanup_enc(coeffs: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor,
@@ -177,13 +182,26 @@ def ht_cleanup_enc_plain(coeffs, heights, widths, cap: int):
 
 
 # ==================================================== K-f: cleanup decode
+DEC_WARPS = 12  # warps a CUDA block of K-f (csrc/ht_dec.cu WARPS)
+DEC_GROUPS = 2  # codeblocks a warp of K-f (csrc/ht_dec.cu GROUPS: 16 lanes each)
+
+
+def dec_occupancy(bw: int) -> tuple[int, int]:
+    """_occupancy of a K-f launch (DEC_WARPS warps a block, DEC_GROUPS
+    codeblocks a warp)."""
+    return _occupancy("ht_dec.cu", "ht_dec_occupancy", bw)
+
+
 def ht_cleanup_dec(data: torch.Tensor, lengths: torch.Tensor, heights: torch.Tensor,
                    widths: torch.Tensor, tab: torch.Tensor, bh: int,
                    bw: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode cleanup segments: (out [n, bh, bw] int32, stopped [n] bool).
     data [n, L] uint8, lengths/heights/widths [n] int32, tab: ht_tables().
-    out is t1/ht.py decode_cleanup's, wrapped to int32; stopped marks the
-    codeblocks whose decode stopped early on a corrupt segment."""
+    out is t1/ht.py decode_cleanup's, wrapped to int32, zero outside each
+    codeblock's heights x widths; stopped marks the codeblocks whose decode
+    stopped early on a corrupt segment (the kernel also flags, and leaves
+    zero, a codeblock taller or wider than bh x bw, which the plain version
+    refuses)."""
     n, L = data.shape
     dev = data.device
     _check(data, "data", torch.uint8, 2, dev)
@@ -198,7 +216,7 @@ def ht_cleanup_dec(data: torch.Tensor, lengths: torch.Tensor, heights: torch.Ten
         return ht_cleanup_dec_plain(data, lengths, heights, widths, bh, bw)
     if dev.type != "cuda":
         raise ValueError(f"ht_cleanup_dec: unsupported device {dev}")
-    out = torch.zeros((n, bh, bw), dtype=torch.int32, device=dev)
+    out = torch.empty((n, bh, bw), dtype=torch.int32, device=dev)  # the kernel writes every sample
     stopped = torch.empty(n, dtype=torch.uint8, device=dev)
     kernels.KERNELS["ht_cleanup_dec"].call(
         data.data_ptr(), lengths.data_ptr(), heights.data_ptr(), widths.data_ptr(),

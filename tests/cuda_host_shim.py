@@ -4,8 +4,8 @@ There is no nvcc here, so the source of a kernel up to its host entry
 points is built by g++ against SHIM, a small stand-in for the CUDA
 builtins the kernels use: every CUDA thread is a std::thread, blocks run one
 after another, __syncthreads and __syncwarp are barriers, the warp
-shuffles and ballot go through a per-warp exchange array (any type of up to
-8 bytes), shared-memory atomics are host atomics, the double intrinsics are
+shuffles (with their width), ballot and any go through a per-warp
+exchange array (any type of up to 8 bytes), shared-memory atomics are host atomics, the double intrinsics are
 the host's IEEE operations (built without contraction), and every __ldg
 and global atomicAdd is checked against the buffers of the launch (an
 access outside them aborts). A test's harness defines the launch. What this
@@ -33,13 +33,15 @@ SHIM = r"""
 #define __host__
 #define __global__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__
 #define __restrict__
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3_ { unsigned x, y, z; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
+struct int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 extern thread_local dim3_ threadIdx, blockIdx;
 extern dim3_ blockDim;
 template <class T> inline T min(T a, T b) { return a < b ? a : b; }
@@ -62,6 +64,15 @@ inline unsigned long long atomicOr(unsigned long long* p, unsigned long long v) 
 inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
 inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
+inline unsigned __brev(unsigned x) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+    return r;
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
+    return (unsigned)((((uint64_t)hi << 32) | lo) >> (s & 31));
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -103,17 +114,18 @@ template <class T, class F> inline T exch(T v, F src) {
     t_warp->wait();
     return r;
 }
-template <class T> inline T __shfl_sync(unsigned, T v, int src) {
-    return exch(v, [&](int) { return src & 31; });
+// shuffles within segments of ``width`` lanes, as CUDA's
+template <class T> inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+    return exch(v, [&](int l) { return (l & ~(width - 1)) | (src & (width - 1)); });
 }
-template <class T> inline T __shfl_up_sync(unsigned, T v, int d) {
-    return exch(v, [&](int l) { return l - d; });
+template <class T> inline T __shfl_up_sync(unsigned, T v, int d, int width = 32) {
+    return exch(v, [&](int l) { return (l & (width - 1)) >= d ? l - d : l; });
 }
-template <class T> inline T __shfl_down_sync(unsigned, T v, int d) {
-    return exch(v, [&](int l) { return l + d; });
+template <class T> inline T __shfl_down_sync(unsigned, T v, int d, int width = 32) {
+    return exch(v, [&](int l) { return (l & (width - 1)) + d < width ? l + d : l; });
 }
-template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) {
-    return exch(v, [&](int l) { return l ^ m; });
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m, int width = 32) {
+    return exch(v, [&](int l) { return (l ^ m) < ((l & ~(width - 1)) + width) ? l ^ m : l; });
 }
 inline unsigned __ballot_sync(unsigned, int p) {
     int lane = threadIdx.x & 31; t_exch->v[lane] = p != 0; t_warp->wait();
@@ -121,6 +133,7 @@ inline unsigned __ballot_sync(unsigned, int p) {
     for (int i = 0; i < 32; ++i) r |= (unsigned)t_exch->v[i] << i;
     t_warp->wait(); return r;
 }
+inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
 """
 
 # the globals SHIM declares, for a harness to define once

@@ -352,31 +352,79 @@ def test_ht_encode_kernel_equals_plain_stress(cuda, case):
     assert not bool(stopped.any()) and torch.equal(dec.cpu(), c)
 
 
-@pytest.mark.parametrize("seed", [109, 110])
-def test_ht_decode_kernel_equals_plain_on_garbage(cuda, seed):
-    rng = np.random.default_rng(seed)
-    n, L = 32, 400
-    data = torch.from_numpy(rng.integers(0, 256, size=(n, L), dtype=np.uint8))
-    lens = torch.from_numpy(rng.integers(0, L + 1, size=n).astype(np.int32))
-    hw = torch.from_numpy(rng.integers(1, 33, size=(2, n)).astype(np.int32))
-    ref = hc.ht_cleanup_dec(data, lens, hw[0].contiguous(), hw[1].contiguous(),
-                            hc.ht_tables(torch.device("cpu")), 32, 32)
-    got = hc.ht_cleanup_dec(data.to(cuda), lens.to(cuda), hw[0].contiguous().to(cuda),
-                            hw[1].contiguous().to(cuda), hc.ht_tables(cuda), 32, 32)
+@functools.lru_cache(maxsize=1)
+def _kf_cases():
+    """K-f's cases beyond random bytes: clean 64x64 segments cut at seeded
+    lengths; invalid codewords at a pair's first and second quad (under
+    tables that make every rho-15 codeword invalid: the reference's have
+    none); 1024-wide rows whole, cut and with bytes flipped; and a batch of
+    8x8 codeblocks, a third of them corrupted, larger than one wave of the
+    card. name -> (segments, heights, widths, bh, bw, invalid tables)."""
+    from test_torch_kf_host import (_blocks, cut_segments, encode_blocks, flip_bytes,
+                                    invalid_codeword_case)
+
+    c64 = _blocks(120, 24, 64, 64, 400, 0.7)
+    inv = invalid_codeword_case()
+    wide = _blocks(121, 3, 4, 1024, 90, 0.8)
+    wsegs = encode_blocks(*wide)
+    wsegs = wsegs + cut_segments(wsegs, 122) + flip_bytes(wsegs, 123)
+    many = _blocks(124, 9000, 8, 8, 40, 0.6, ragged=True)
+    msegs = encode_blocks(*many)
+    msegs[::3] = flip_bytes(msegs[::3], 125, flips=1)
+    return {
+        "truncated": (cut_segments(encode_blocks(*c64), 126), *c64[1:], 64, 64, False),
+        "invalid codeword at a pair's second quad": (encode_blocks(*inv[:3]), *inv[1:3], 8, 80,
+                                                     True),
+        "1024-wide rows": (wsegs, np.tile(wide[1], 3), np.tile(wide[2], 3), 4, 1024, False),
+        "more than a wave": (msegs, *many[1:], 8, 8, False),
+    }
+
+
+@pytest.mark.parametrize("case", [109, 110, "truncated",
+                                  "invalid codeword at a pair's second quad", "1024-wide rows",
+                                  "more than a wave"])
+def test_ht_decode_kernel_equals_plain_on_garbage(cuda, monkeypatch, case):
+    tab_cpu, tab = hc.ht_tables(torch.device("cpu")), hc.ht_tables(cuda)
+    if isinstance(case, int):
+        rng = np.random.default_rng(case)
+        n, L, bh, bw = 32, 400, 32, 32
+        data = torch.from_numpy(rng.integers(0, 256, size=(n, L), dtype=np.uint8))
+        lens = torch.from_numpy(rng.integers(0, L + 1, size=n).astype(np.int32))
+        hw = torch.from_numpy(rng.integers(1, 33, size=(2, n)).astype(np.int32))
+        h, w = hw[0].contiguous(), hw[1].contiguous()
+    else:
+        from test_torch_kf_host import invalid_rho15_tables, pack_segments
+
+        segs, h, w, bh, bw, invalid = _kf_cases()[case]
+        data, lens = pack_segments(segs, seed=127)
+        h, w = (torch.tensor(np.asarray(a), dtype=torch.int32) for a in (h, w))
+        if invalid:
+            dec_tbl, tab_cpu = invalid_rho15_tables()
+            monkeypatch.setattr(port_ht, "DEC_TBL", dec_tbl)
+            tab = tab_cpu.to(cuda)
+    ref = hc.ht_cleanup_dec(data, lens, h, w, tab_cpu, bh, bw)
+    got = hc.ht_cleanup_dec(data.to(cuda), lens.to(cuda), h.to(cuda), w.to(cuda), tab, bh, bw)
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    if not isinstance(case, int):
+        assert bool(ref[1].any()) and (case == "invalid codeword at a pair's second quad"
+                                       or not bool(ref[1].all()))
+    if case == "1024-wide rows":  # the launch took over 48 KB of shared memory a block
+        assert hc.dec_occupancy(bw)[1] > 48 * 1024
 
 
 def test_ht_decode_kernel_flags_wide_fields(cuda):
-    """MagSgn fields of 31 and 32 bits, and random bytes: the kernel writes
-    what the plain version writes (grok_tpu's default decoder's values,
-    wrapped to int32, kept where a corrupt segment stops the decode) and
-    flags the same codeblocks as stopped."""
-    c = np.zeros((3, 32, 32), dtype=np.int64)
+    """MagSgn fields of 31 and 32 bits, a quad that stops at its second
+    field (33 bits) after a 32-bit first, and random bytes: the kernel
+    writes what the plain version writes (grok_tpu's default decoder's
+    values, wrapped to int32, kept where a corrupt segment stops the
+    decode) and flags the same codeblocks as stopped."""
+    c = np.zeros((4, 32, 32), dtype=np.int64)
     c[0, :4, :4] = (1 << 29) + 12345
     c[1, 2, 2] = -(1 << 30)
     c[1, 5, 5] = (1 << 31) + 5  # alone in its quad: a 32-bit field
     c[2] = 77
+    c[3, 0, 0], c[3, 0, 1], c[3, 1, 1] = (1 << 31) + 7, 5, 5
     segs = [port_ht.encode_cleanup(b, 32, 32) for b in c]
     rng = np.random.default_rng(109)
     segs += [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
@@ -392,8 +440,10 @@ def test_ht_decode_kernel_flags_wide_fields(cuda):
                             hc.ht_tables(cuda), 32, 32)
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
-    assert not bool(ref[1][:3].any()) and bool(ref[1][3:].any())
+    assert not bool(ref[1][:3].any()) and bool(ref[1][3]) and bool(ref[1][4:].any())
     assert int(ref[0][1, 5, 5]) == -2147483643
+    assert int(ref[0][3, 0, 0]) == (1 << 31) + 7 - (1 << 32)
+    assert int(ref[0][3].count_nonzero()) == 1
 
 
 @pytest.mark.parametrize("h,w,py,px", [(1, 1, 0, 0), (1, 9, 1, 0), (2, 2, 1, 1),
