@@ -40,7 +40,13 @@ line):
               its bound on the bytes inside the codeblocks beside that on
               the rows it writes whole; K-p
               and K-q on the sample (plain on the CPU) and on the whole 4K
-              lossy97 batch (K-p's plain on the card, K-q's on the CPU); K-r
+              lossy97 batch (K-p's plain on the card, K-q's on the CPU),
+              with K-p's passes summed by the exact reduction and by the
+              ordered chain, the record-row bytes it reads, its launch and
+              ptxas; K-n as inverse_transform calls it (dwt97_inv_levels,
+              15 launches an image, warm and cold) and by its in-place
+              one-level entry, each level of a component alone (C entry),
+              a 1024x1024 tile's five levels, its launch and ptxas; K-r
               and K-s (the Part-2 MCT with M3 and back) and K-t (a packed
               plane shifted up and down) on the whole image, plain on the
               card; K-u, K-v and K-b/K-g/K-k/K-n's horizontal halves on the
@@ -609,6 +615,30 @@ def cuda_ms(torch, fn, reps=5):
     return a.elapsed_time(b) / reps
 
 
+def chain_times(torch, fn, reps=REPS):
+    """A chain of launches as a request stage runs it: from a synchronised
+    start, the host's ms until fn returns (its enqueue), the wall ms until
+    the card is done, and the card's ms between events around it (the
+    medians of reps runs after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    host, wall, dev = [], [], []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3)
+        wall.append((t2 - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+    return {k: sorted(v)[len(v) // 2] for k, v in
+            (("host_enqueue_ms", host), ("wall_ms", wall), ("device_ms", dev))}
+
+
 def cpu_ms(fn):
     t = time.perf_counter()
     out = fn()
@@ -642,6 +672,35 @@ def ptxas(stem):
     log = kernels.BUILD_DIR / f"{stem}.log"
     return [ln.strip() for ln in log.read_text().splitlines()
             if "registers" in ln or "spill" in ln] if log.exists() else []
+
+
+def c_ints(kernels, source, entry, *args, outs=3):
+    """The int outputs of a C entry of csrc/<source> that takes ``args``
+    (ints) and then ``outs`` int pointers (an occupancy query)."""
+    import ctypes
+
+    fn = getattr(kernels.library(source), entry)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * outs
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int(0) for _ in range(outs)]
+    rc = fn(*args, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
+    return [v.value for v in vals]
+
+
+def kp_regimes(kernels, nbs, bh, bw):
+    """K-p's passes of codeblocks with numbps ``nbs`` (bh x bw): how many
+    sum as an exact int64 reduction and how many take the ordered float64
+    chain (the kernel's own bound, its C entry ebcot_dist_exact)."""
+    exact = kernels.library("ebcot_dist.cu").ebcot_dist_exact
+    npos = -(-bh // 4) * 4 * bw
+    nbs = np.asarray(nbs, dtype=np.int64)
+    out = {"reduction": 0, "ordered_chain": 0}
+    for p in range(int(nbs.max(initial=0))):
+        passes = int((nbs - 1 == p).sum()) + 3 * int((nbs - 1 > p).sum())
+        out["reduction" if exact(p, npos) else "ordered_chain"] += passes
+    return out
 
 
 def ke_figures(torch, hc, kernels, timer, batch, h32, w32, htab, mmax, ref):
@@ -1297,7 +1356,8 @@ def main() -> int:
     plain_ms_q, p_slopes = cpu_ms(lambda: rc.hull_slopes(*hull_in))
     sample_checks_pq = dict(
         ebcot_pass_dist=dict(equal=bool(torch.equal(k_dist.cpu(), p_dist)),
-                             plain_cpu_ms=plain_ms_p, passes=int(s_npass.sum())),
+                             plain_cpu_ms=plain_ms_p, passes=int(s_npass.sum()),
+                             regimes=kp_regimes(kernels, s_nb.cpu().numpy(), *s_batch.shape[1:])),
         hull_slopes=dict(equal=bool(torch.equal(k_slopes.cpu(), p_slopes)),
                          plain_cpu_ms=plain_ms_q))
     del k_dist, k_slopes
@@ -1595,15 +1655,28 @@ def main() -> int:
                                                                  11)[..., 4::2] >= 0x80).sum())
     p_passes = dist97.shape[1]
     bytes_p = read_p + in_blk97 * 4 + n97 * 4 + n97 * p_passes * 8
+    # the record rows K-p reads whole (SPP 8, MRP 4, CUP 11 slots a column of a stripe)
+    rows_p = int(sum(max(int(b) - 1, 0) * (s_spp97 + s_mrp97) + int(b) * ns97 * bw97 * 11
+                     for b in nbh97))
+    threads_p, smem_p, blocks_p = c_ints(kernels, "ebcot_dist.cu", "ebcot_dist_occupancy",
+                                         bh97, bw97, p_passes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kp_fig = dict(
+        passes=kp_regimes(kernels, nbh97, bh97, bw97),
+        bytes_rows_read=rows_p + in_blk97 * 4 + n97 * 4 + n97 * p_passes * 8,
+        launch=dict(threads_a_block=threads_p, shared_bytes_a_block=smem_p,
+                    blocks_per_sm=blocks_p, waves=-(-n97 // max(blocks_p * sms, 1))),
+        ptxas=ptxas("ebcot_dist"))
     stats["ebcot_pass_dist"] = dict(
         max_abs_err=err_p,
-        **timer.row(lambda: ec.ebcot_pass_dist(sym97, b97, nb97_32, pmax97), bytes_=bytes_p),
+        **timer.row(lambda: ec.ebcot_pass_dist(sym97, b97, nb97_32, pmax97), cold=True,
+                    bytes_=bytes_p),
         plain_ms=plain_ms_p, bytes=bytes_p, ops=5 * valid_p,
         op_rate=FP64_OPS_PER_S,
         shape=f"{n97} codeblocks {bh97}x{bw97} (4K lossy97), {p_passes} passes, "
               f"{read_p} B of records read, {valid_p} decreases",
         plain_shape="the same batch, plain on the card",
-        sample_check=sample_checks_pq["ebcot_pass_dist"])
+        sample_check=sample_checks_pq["ebcot_pass_dist"], **kp_fig)
     r97 = ec.mq_pack(sym97, nb97_32, lanes97[4].contiguous(), tabs["mq"], bh97, bw97,
                      pmax97)[2].cpu().numpy().astype(np.int64)
     np97 = np.maximum(nbh97.astype(np.int64) * 3 - 2, 0)
@@ -1637,17 +1710,54 @@ def main() -> int:
                                          for q, b in zip(q_k, bands)]),
         bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S,
         shape=f"3 x {H}x{W} int32 -> float32, {len(bands[0])} bands a component")
-    kern = [p.clone() for p in d_k]
+    # K-n as inverse_transform calls it: a component's levels coarsest first,
+    # one launch each, into a new plane (dwt97_inv_levels); the in-place
+    # one-level entry (a launch and a copy a level) checked too
+    inv_lv = [list(reversed(levels[5 * c:5 * c + 5])) for c in range(NC)]
+
+    def inv97(ps):
+        return [tr.dwt97_inv_levels(p, lv) for p, lv in zip(ps, inv_lv)]
+    kern = inv97(d_k)
     plain = [p.clone() for p in d_k]
-    idwt_all(tr.dwt97_inv_level, kern)
     idwt_all(tr.dwt97_inv_level_plain, plain)
-    scratch = [p.clone() for p in d_k]
+    in_place = [p.clone() for p in d_k]
+    idwt_all(tr.dwt97_inv_level, in_place)
+    threads_n, smem_n, blocks_n = c_ints(kernels, "dwt97.cu", "dwt97_inv_occupancy")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def tiles(h, w):
+        return -(-h // 56) * -(-w // 64)
+    out0, launch_n = torch.empty_like(d_k[0]), tr.inv97_launcher(dev)
+
+    def level_c(lv):  # one level of component 0 alone, by the C entry, into out0
+        return lambda: launch_n(d_k[0], d_k[0], out0, *lv)
+    tile1k = d_k[0][:1024, :1024].contiguous()
+    lv1k = [(1024 >> k, 1024 >> k, 0, 0) for k in range(4, -1, -1)]
+    kn_fig = dict(
+        in_place_entry_equal=err_of(in_place, plain) == 0,
+        launch=dict(threads_a_block=threads_n, shared_bytes_a_block=smem_n,
+                    blocks_per_sm=blocks_n,
+                    waves_4k_levels=[-(-tiles(h, w) // (blocks_n * sms))
+                                     for h, w, _, _ in inv_lv[0]]),
+        levels_4k_ms={f"{lv[0]}x{lv[1]}": timer.warm(level_c(lv)) for lv in inv_lv[0]},
+        tile_1024_ms=timer.warm(lambda: tr.dwt97_inv_levels(tile1k, lv1k)),
+        tile_1024_equal=err_of([tr.dwt97_inv_levels(tile1k, lv1k)],
+                               [tr.dwt97_inv_levels(tile1k.cpu(), lv1k).to(dev)]) == 0,
+        ptxas=ptxas("dwt97"))
+    # the decode's inverse stage on these planes: dequantization, K-n, K-o
+    rects97 = [g.rect for g in tp97.geoms]
+
+    def inverse_chain():
+        tr.inverse_transform(q_k, rects97, [5] * NC, [8] * NC, [False] * NC, True, True, bands)
+    kn_fig["inverse_stage"] = chain_times(torch, inverse_chain)
     stats["dwt97_inv_level"] = dict(
-        max_abs_err=err_of(kern, plain),
-        **timer.row(lambda: idwt_all(tr.dwt97_inv_level, scratch), bytes_=lift_bytes),
-        plain_ms=cuda_ms(torch, lambda: idwt_all(tr.dwt97_inv_level_plain, scratch)),
+        max_abs_err=max(err_of(kern, plain), err_of(in_place, plain)),
+        **timer.row(lambda: inv97(d_k), cold=True, bytes_=lift_bytes),
+        plain_ms=cuda_ms(torch, lambda: idwt_all(tr.dwt97_inv_level_plain, in_place)),
         bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S,
-        shape="5 levels x 3 comps to 2160x3840 float32 (ms per image)")
+        shape="5 levels x 3 comps to 2160x3840 float32 (ms per image, dwt97_inv_levels: "
+              "15 launches)", **kn_fig)
+    del in_place, tile1k, out0
     o_k = tr.ict_inv_dc_round_clip(kern, dcs, rng8, True)
     o_p = tr.ict_inv_dc_round_clip_plain(kern, dcs, rng8, True)
     worst = max(int((o.cpu() - torch.from_numpy(np.ascontiguousarray(arr[:, :, c]))).abs().max())

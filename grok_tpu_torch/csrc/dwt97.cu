@@ -1,6 +1,7 @@
 // K-k dwt97_fwd_level and K-n dwt97_inv_level: one level of the forward and
 // of the inverse irreversible 9/7 wavelet (T.800 F.4.8.2 and F.3.8.2), on
-// the Mallat-packed top-left h x w region of a float32 plane, in place.
+// the Mallat-packed top-left h x w region of a float32 plane (K-k in place,
+// K-n into another buffer).
 //
 // Replaces: the irreversible lifting inside grok_tpu/ops/jax_pipeline.py
 // make_forward_fn (:93) and make_inverse_fn (:191), i.e. ops/dwt.py forward
@@ -11,23 +12,45 @@
 // Bound on an H100 (3.35 TB/s): bytes. A level reads its region once and
 // writes it once, 8 bytes per sample, and does 4 lifting steps of 3 float
 // operations plus a scaling per sample and axis; five levels of 3840x2160x3
-// move ~265 MB, 0.08 ms. Design: a block stages whole lines in shared
-// memory, deinterleaved into their low-pass half s [0, sn) and high-pass half
-// d [sn, n), and runs the four lifting steps over them with __syncthreads()
-// between steps, then the 1/K and K scaling. Staging the whole line makes
-// every step clamp into the opposite-phase array exactly as the native row
-// code does (d[j] += A * (s[j] + s[min(j + 1, sn - 1)]) and so on), with no
-// halo logic. A horizontal pass gives a block one row (neighbouring threads
-// on neighbouring samples); a vertical pass gives it G neighbouring columns
-// (element k of column g at buf[k * G + g], so a load of G consecutive
-// columns is one coalesced segment). Each block owns its lines, so both
-// passes work in place. Every product and sum is rounded on its own
+// move ~265 MB, 0.08 ms. Every product and sum is rounded on its own
 // (__fmul_rn/__fadd_rn/__fsub_rn, and the source is built with -fmad=false),
 // as the host path computes them. A line of one sample is left unscaled in
 // both parities (ops/dwt.py:154-158). The origin parity of the level's rect
 // decides which phase is low-pass: sample p is low-pass iff (p & 1) == par,
 // at index p >> 1 of its phase.
+//
+// K-k (and the horizontal halves dwt97_fwd_h / dwt97_inv_h): a block stages
+// whole lines in shared memory, deinterleaved into their low-pass half s
+// [0, sn) and high-pass half d [sn, n), and runs the four lifting steps over
+// them with __syncthreads() between steps, then the 1/K and K scaling.
+// Staging the whole line makes every step clamp into the opposite-phase
+// array exactly as the native row code does (d[j] += A * (s[j] + s[min(j +
+// 1, sn - 1)]) and so on), with no halo logic. A horizontal pass gives a
+// block one row (neighbouring threads on neighbouring samples); a vertical
+// pass gives it G neighbouring columns (element k of column g at buf[k * G +
+// g], so a load of G consecutive columns is one coalesced segment). Each
+// block owns its lines, so both passes work in place; a level is two passes.
+//
+// K-n: one launch a level, both axes, 8 bytes a sample. In natural order
+// each lifting step updates a sample from its two neighbours of the other
+// phase, and the native code's clamped indices are T.800's symmetric
+// extension (x -> -x, n - 1 + x -> n - 1 - x), which the steps keep
+// symmetric. So a tile of TH x TW output samples needs its input 4 samples
+// around (one per step), reflected at the region's edges. A block stages
+// those (TH + 8) x (TW + 8) samples from their packed places by cp.async (a
+// warp row reads two runs of 36 consecutive floats, the s and the d half;
+// every copy in flight at once, no register held), lifts each
+// staged row in registers (a thread a row), then each of its TW middle
+// columns (a thread a column), and writes its TH x TW middle, a warp row 32
+// consecutive floats (128 B, four whole sectors). The staged halo rows and
+// columns are computed again by the neighbouring tiles, with the same
+// operations, so every tile agrees. The halos a tile reads are other tiles'
+// outputs, so the level writes out of place: the wrapper gives it the LL
+// quadrant (the coarser level's output) and the rest of the packed plane as
+// two sources and a destination that overlaps neither, and ping-pongs two
+// buffers over the levels (transform.dwt97_inv_levels).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,6 +134,116 @@ __global__ void dwt97_lines(float* plane, int n, int nlines, int G,
     }
 }
 
+// ---------------------------------------------------------------- K-n
+// One inverse level in one launch, out of place: a block makes a TH x TW
+// tile of the natural-order output from the packed input around it.
+#define TH 56    // output rows a tile
+#define TW 64    // output columns a tile
+#define HALO 4   // four lifting steps: a sample depends on 4 on each side
+#define TR (TH + 2 * HALO)  // tile rows staged: 64, a thread each (horizontal)
+#define TC (TW + 2 * HALO)  // tile columns staged: 72
+#define TP (TC + 1)         // pitch of a staged row (odd: a column reads no bank twice)
+#define INV_THREADS 64      // TR rows, then TW columns, a thread each
+
+// T.800's symmetric extension of an axis of n samples: x reflected into [0, n)
+__device__ __forceinline__ int reflect(int x, int n) {
+    if (x >= 0 && x < n) return x;
+    if (n == 1) return 0;
+    const int period = 2 * (n - 1);
+    x %= period;
+    if (x < 0) x += period;
+    return x < n ? x : period - x;
+}
+
+// where natural sample x of an axis lies in its packed [s | d] form: s if
+// (x & 1) == par, at x >> 1 of its phase
+__device__ __forceinline__ int packed(int x, int par, int sn) {
+    return ((x & 1) == par ? 0 : sn) + (x >> 1);
+}
+
+// x[c] -= k * (x[c - 1] + x[c + 1]) for c = FIRST, FIRST + 2, ... inside
+// (0, N - 1): the line's ends lack a neighbour and go stale
+template <int N, int FIRST>
+__device__ __forceinline__ void inv_step(float (&x)[N], float k) {
+#pragma unroll
+    for (int c = FIRST == 0 ? 2 : 1; c < N - 1; c += 2)
+        x[c] = __fsub_rn(x[c], __fmul_rn(k, __fadd_rn(x[c - 1], x[c + 1])));
+}
+
+// one axis of the inverse on a line in registers, sample c low-pass iff
+// (c & 1) == PAR: s * K, d / K, then s -= D (d + d), d -= G (s + s),
+// s -= B (d + d), d -= A (s + s) -- the plain version's operations in its
+// order. After the four steps samples [HALO, N - HALO) are right.
+template <int N, int PAR>
+__device__ __forceinline__ void inv97_line(float (&x)[N]) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) x[c] = __fmul_rn(x[c], (c & 1) == PAR ? K97 : IK97);
+    inv_step<N, PAR>(x, D97);
+    inv_step<N, 1 - PAR>(x, G97);
+    inv_step<N, PAR>(x, B97);
+    inv_step<N, 1 - PAR>(x, A97);
+}
+
+// ll: the packed input's LL quadrant (rows [0, snv), columns [0, snh)),
+// row stride ld_ll; src: the rest of the packed input, stride ld; dst: the
+// natural-order output, stride ld_dst. A tile stages rows y0 - HALO .. and
+// columns x0 - HALO .. of the natural-order input (each reflected into the
+// region, then read from its packed place), lifts every staged row in
+// registers (a thread a row), then its TW middle columns (a thread a
+// column), and writes its TH x TW middle. An axis of one sample is neither
+// scaled nor lifted.
+__global__ void __launch_bounds__(INV_THREADS)
+dwt97_inv_tile(const float* __restrict__ ll, int64_t ld_ll, const float* __restrict__ src,
+               int64_t ld, float* __restrict__ dst, int64_t ld_dst, int h, int w, int py,
+               int px) {
+    extern __shared__ float s_tile[];  // TR x TP
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+    const int snv = py ? h / 2 : (h + 1) / 2, snh = px ? w / 2 : (w + 1) / 2;
+    int sx[3];     // packed columns of this lane's staged columns lane, lane + 32, lane + 64
+    bool in_ll[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        sx[k] = packed(reflect(x0 - HALO + lane + 32 * k, w), px, snh);
+        in_ll[k] = sx[k] < snh;
+    }
+#pragma unroll 8
+    for (int r = warp; r < TR; r += INV_THREADS / 32) {  // copies in flight, no registers held
+        const int sy = packed(reflect(y0 - HALO + r, h), py, snv);
+        const float* a = ll + sy * ld_ll;
+        const float* b = src + sy * ld;
+        const bool y_ll = sy < snv;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+            if (lane + 32 * k < TC)
+                __pipeline_memcpy_async(&s_tile[r * TP + lane + 32 * k],
+                                        (y_ll && in_ll[k] ? a : b) + sx[k], sizeof(float));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (w > 1) {  // rows: thread tid lifts staged row tid
+        float x[TC];
+#pragma unroll
+        for (int c = 0; c < TC; ++c) x[c] = s_tile[tid * TP + c];
+        if (px) inv97_line<TC, 1>(x); else inv97_line<TC, 0>(x);
+#pragma unroll
+        for (int c = HALO; c < HALO + TW; ++c) s_tile[tid * TP + c] = x[c];
+    }
+    __syncthreads();
+    float x[TR];  // columns: thread tid lifts column HALO + tid
+#pragma unroll
+    for (int r = 0; r < TR; ++r) x[r] = s_tile[r * TP + HALO + tid];
+    if (h > 1) {
+        if (py) inv97_line<TR, 1>(x); else inv97_line<TR, 0>(x);
+    }
+    if (x0 + tid >= w) return;
+    float* out = dst + x0 + tid;
+#pragma unroll
+    for (int r = HALO; r < HALO + TH; ++r)
+        if (y0 + r - HALO < h) out[(y0 + r - HALO) * ld_dst] = x[r];
+}
+
 // lines of n samples, elem_step apart, line_step between lines
 template <bool FWD>
 static int run_lines(float* plane, int n, int nlines, int64_t elem_step,
@@ -143,15 +276,25 @@ extern "C" int dwt97_fwd_level(void* plane, int ld, int h, int w, int py, int px
     return run_lines<true>(p, w, h, 1, ld, px, st);
 }
 
-// Inverse: horizontal, then vertical.
-extern "C" int dwt97_inv_level(void* plane, int ld, int h, int w, int py, int px,
+// a K-n tile's threads and shared bytes, and its blocks resident on one SM
+extern "C" int dwt97_inv_occupancy(int* threads, int* smem, int* blocks) {
+    *threads = INV_THREADS;
+    *smem = TR * TP * (int)sizeof(float);
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dwt97_inv_tile, *threads,
+                                                              *smem);
+}
+
+// Inverse, one launch: the level of the packed ll/src (see dwt97_inv_tile)
+// into dst, which must not overlap either.
+extern "C" int dwt97_inv_level(const void* ll, int64_t ld_ll, const void* src, int64_t ld,
+                               void* dst, int64_t ld_dst, int h, int w, int py, int px,
                                void* stream) {
     if (h <= 0 || w <= 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    float* p = (float*)plane;
-    int rc = run_lines<false>(p, w, h, 1, ld, px, st);
-    if (rc) return rc;
-    return run_lines<false>(p, h, w, ld, 1, py, st);
+    static_assert(TR == INV_THREADS && TW == INV_THREADS && TC <= 96, "a thread a row, a column");
+    const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+    dwt97_inv_tile<<<grid, INV_THREADS, TR * TP * sizeof(float), (cudaStream_t)stream>>>(
+        (const float*)ll, ld_ll, (const float*)src, ld, (float*)dst, ld_dst, h, w, py, px);
+    return (int)cudaGetLastError();
 }
 
 // The horizontal halves alone (K6's _fwd97_h_local and _inv97_h_local,

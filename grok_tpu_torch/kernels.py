@@ -120,7 +120,7 @@ KERNELS: dict[str, Kernel] = {
         Kernel("dwt97_inv_level", "dwt97.cu",
                "grok_tpu/ops/jax_pipeline.py:191 (K2-inv irreversible: dwt.inverse / "
                "inv97_axis)",
-               (_P, _I32, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+               (_P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
         Kernel("ict_inv_dc_round_clip", "ict_inv.cu",
                "grok_tpu/ops/jax_pipeline.py:198-217 (K2-inv irreversible: "
                "ops/mct.py:56 ict_inverse, DC shift, round, clip)",

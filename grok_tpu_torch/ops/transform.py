@@ -19,7 +19,8 @@ wavelet runs (grok_tpu_torch/parallel/mesh.py):
   ``rct_inv_dc_clip`` (csrc/rct_inv.cu), all int32 with arithmetic right
   shifts;
 - irreversible: K-j ``dc_ict_fwd`` (csrc/dc_ict.cu), K-k
-  ``dwt97_fwd_level`` and K-n ``dwt97_inv_level`` (csrc/dwt97.cu), K-l
+  ``dwt97_fwd_level`` and K-n ``dwt97_inv_level`` (csrc/dwt97.cu; the
+  decode runs K-n's levels out of place through ``dwt97_inv_levels``), K-l
   ``quant_deadzone`` and K-m ``dequant_midbin`` (csrc/quant97.cu) and K-o
   ``ict_inv_dc_round_clip`` (csrc/ict_inv.cu), float32 with every product
   and every sum rounded on its own, as the host path computes them (the
@@ -353,14 +354,17 @@ def inverse_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels:
     for plane, s in zip(planes, rois or ()):
         if s:
             roi_down(plane, s)
-    inv = dwt97_inv_level if irreversible else dwt53_inv_level
     if irreversible:
         planes = [dequant_midbin(p, b) for p, b in zip(planes, bands)]
     elif custom is not None:
         raise ValueError("the Part-2 MCT takes the irreversible transform")
-    for plane, rect, nl in zip(planes, rects, num_levels):
-        for cur in reversed(_levels(rect, nl)):
-            inv(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
+    for c, (rect, nl) in enumerate(zip(rects, num_levels)):
+        levels = [(r.height, r.width, r.y0 & 1, r.x0 & 1) for r in reversed(_levels(rect, nl))]
+        if irreversible:
+            planes[c] = dwt97_inv_levels(planes[c], levels)
+        else:
+            for lv in levels:
+                dwt53_inv_level(planes[c], *lv)
     if custom is not None:
         return mct_inv_round_clip(planes, custom, dcs if offsets is None else offsets, ranges)
     if irreversible:
@@ -418,31 +422,33 @@ def dc_ict_fwd_plain(planes, dcs, ict):
 
 
 # ============================================= K-k: one 9/7 level
-def _dwt97_level(name: str, plain, plane: torch.Tensor, h: int, w: int, py: int,
-                 px: int) -> None:
+def _check97(name: str, plane: torch.Tensor, levels) -> torch.device:
+    """The device of a float32 plane that holds every level (h, w, ...)."""
     _check_plane(plane, "plane", torch.float32)
-    if h > plane.shape[0] or w > plane.shape[1]:
-        raise ValueError("level region exceeds the plane")
-    if h == 0 or w == 0:
-        return
+    for h, w, *_ in levels:
+        if h > plane.shape[0] or w > plane.shape[1]:
+            raise ValueError("level region exceeds the plane")
     dev = plane.device
-    if dev.type == "cpu":
-        plain(plane, h, w, py, px)
-        return
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    if max(h, w) > MAX_LINE_97:
-        raise UnsupportedFeatureError(
-            f"outside the ported slices: 9/7 lines longer than {MAX_LINE_97} samples")
-    kernels.KERNELS[name].call(plane.data_ptr(), plane.stride(0), h, w, py, px,
-                               kernels.stream_ptr(dev))
+    return dev
 
 
 def dwt97_fwd_level(plane: torch.Tensor, h: int, w: int, py: int, px: int) -> None:
     """One forward 9/7 level, in place on a float32 plane: the top-left
     h x w becomes [[LL, HL], [LH, HH]]; py/px are the level rect's origin
     parities. A line of one sample is left as it is."""
-    _dwt97_level("dwt97_fwd_level", dwt97_fwd_level_plain, plane, h, w, py, px)
+    dev = _check97("dwt97_fwd_level", plane, [(h, w)])
+    if h == 0 or w == 0:
+        return
+    if dev.type == "cpu":
+        dwt97_fwd_level_plain(plane, h, w, py, px)
+        return
+    if max(h, w) > MAX_LINE_97:
+        raise UnsupportedFeatureError(
+            f"outside the ported slices: 9/7 lines longer than {MAX_LINE_97} samples")
+    kernels.KERNELS["dwt97_fwd_level"].call(plane.data_ptr(), plane.stride(0), h, w, py, px,
+                                            kernels.stream_ptr(dev))
 
 
 def _s_nbrs(parity: int, dn: int, sn: int, device):
@@ -491,10 +497,66 @@ def dwt97_fwd_level_plain(plane, h, w, py, px):
 
 
 # ============================================= K-n: one inverse 9/7 level
+def inv97_launcher(dev: torch.device):
+    """K-n's launch on ``dev``'s current stream, ``launch(ll, src, dst, h,
+    w, py, px)``: the level of the packed ``ll`` (its LL quadrant) and
+    ``src`` (the rest) into ``dst``, which overlaps neither."""
+    call, stream = kernels.KERNELS["dwt97_inv_level"].call, kernels.stream_ptr(dev)
+
+    def launch(ll, src, dst, h, w, py, px):
+        call(ll.data_ptr(), ll.stride(0), src.data_ptr(), src.stride(0), dst.data_ptr(),
+             dst.stride(0), h, w, py, px, stream)
+    return launch
+
+
+def inv97_ping_pong(plane: torch.Tensor, levels, launch) -> torch.Tensor:
+    """K-n's launches over ``levels`` (h, w, py, px), coarsest first, each
+    out of place: level i reads its LL quadrant from level i - 1's output
+    (the plane for the first) and its other bands from the plane, and
+    writes one of two buffers: the finest level the one returned, the
+    levels before it in turns that one and a scratch the size of the
+    second-finest level. A plane larger than the finest level keeps its
+    outside in the buffer returned."""
+    h0, w0 = levels[-1][:2]
+    out = plane.new_empty(plane.shape) if (h0, w0) == tuple(plane.shape) else plane.clone()
+    tmp = plane.new_empty(levels[-2][:2]) if len(levels) > 1 else None
+    ll = plane
+    for i, (h, w, py, px) in enumerate(levels):
+        dst = out if (len(levels) - 1 - i) % 2 == 0 else tmp
+        launch(ll, plane, dst, h, w, py, px)
+        ll = dst
+    return out
+
+
+def dwt97_inv_levels(plane: torch.Tensor, levels) -> torch.Tensor:
+    """The inverse 9/7 of ``levels`` (h, w, py, px), coarsest first, on a
+    float32 plane: the tensor that holds the result, the plane itself on the
+    CPU (in place), a new one on the card (one K-n launch a level, the plane
+    left as it was)."""
+    levels = [lv for lv in levels if lv[0] and lv[1]]
+    dev = _check97("dwt97_inv_levels", plane, levels)
+    if not levels:
+        return plane
+    if dev.type == "cpu":
+        for lv in levels:
+            dwt97_inv_level_plain(plane, *lv)
+        return plane
+    return inv97_ping_pong(plane, levels, inv97_launcher(dev))
+
+
 def dwt97_inv_level(plane: torch.Tensor, h: int, w: int, py: int, px: int) -> None:
     """One inverse 9/7 level, in place on a float32 plane: the
-    Mallat-packed top-left h x w becomes natural order."""
-    _dwt97_level("dwt97_inv_level", dwt97_inv_level_plain, plane, h, w, py, px)
+    Mallat-packed top-left h x w becomes natural order (on the card K-n
+    writes a scratch region, copied back)."""
+    dev = _check97("dwt97_inv_level", plane, [(h, w)])
+    if h == 0 or w == 0:
+        return
+    if dev.type == "cpu":
+        dwt97_inv_level_plain(plane, h, w, py, px)
+        return
+    out = plane.new_empty((h, w))
+    inv97_launcher(dev)(plane, plane, out, h, w, py, px)
+    plane[:h, :w].copy_(out)
 
 
 def _inv97_axis(y: torch.Tensor, axis: int, parity: int) -> torch.Tensor:

@@ -387,9 +387,12 @@ def mq_pack_plain(sym, numbps, styles, table, h: int, w: int, pmax: int):
 def ebcot_pass_dist(sym: torch.Tensor, coeffs: torch.Tensor, numbps: torch.Tensor,
                     pmax: int) -> torch.Tensor:
     """Distortion decrease per (codeblock, pass), float64 [n, max(3 pmax - 2,
-    1)], from K-c's records [n, pmaxc, 3, s_pad] uint8, the coefficients
-    [n, h, w] int32 and numbps [n] int32: each pass sums its samples'
-    decreases in slot order, as the native host coder does."""
+    1)], from K-c's records [n, pmaxc, 3, s_pad] uint8 (16-byte aligned on
+    the card), the coefficients [n, h, w] int32 and numbps [n] int32: each
+    pass's sum equals the native host coder's float64 sum in slot order,
+    bit for bit (on the card an exact int64 reduction where the bound of
+    csrc/ebcot_dist.cu's header holds, its C entry ``ebcot_dist_exact``,
+    the ordered chain elsewhere)."""
     n, h, w = coeffs.shape
     dev = coeffs.device
     _check(sym, "sym", torch.uint8, 4, dev)
@@ -403,6 +406,8 @@ def ebcot_pass_dist(sym: torch.Tensor, coeffs: torch.Tensor, numbps: torch.Tenso
         return pass_dist_from_records(sym, coeffs, numbps, pmax)
     if dev.type != "cuda":
         raise ValueError(f"ebcot_pass_dist: unsupported device {dev}")
+    if sym.data_ptr() % 16:
+        raise ValueError("sym must be 16-byte aligned (the kernel reads 16-byte chunks)")
     max_passes = max(3 * pmax - 2, 1)
     dist = torch.empty((n, max_passes), dtype=torch.float64, device=dev)
     kernels.KERNELS["ebcot_pass_dist"].call(

@@ -5,8 +5,10 @@ points is built by g++ against SHIM, a small stand-in for the CUDA
 builtins the kernels use: every CUDA thread is a std::thread, blocks run one
 after another, __syncthreads and __syncwarp are barriers, the warp
 shuffles (with their width), ballot and any go through a per-warp
-exchange array (any type of up to 8 bytes), shared-memory atomics are host atomics, the double intrinsics are
-the host's IEEE operations (built without contraction), and every __ldg
+exchange array (any type of up to 8 bytes), shared-memory atomics are host
+atomics, the float and double intrinsics are the host's IEEE operations
+(built without contraction), a cp.async (__pipeline_memcpy_async) is a
+copy at once, and every __ldg, cp.async source
 and global atomicAdd is checked against the buffers of the launch (an
 access outside them aborts). A test's harness defines the launch. What this
 cannot show: timing, occupancy, and anything nvcc compiles differently
@@ -20,6 +22,7 @@ import pytest
 
 SHIM = r"""
 #pragma once
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 #include <atomic>
@@ -38,6 +41,7 @@ SHIM = r"""
 #define __restrict__
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3_ { unsigned x, y, z; };
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 struct int2 { int x, y; };
@@ -63,6 +67,10 @@ inline unsigned long long atomicOr(unsigned long long* p, unsigned long long v) 
 }
 inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
 inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
+inline double __dsub_rn(double a, double b) { volatile double r = a - b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
 inline unsigned __brev(unsigned x) {
@@ -83,6 +91,13 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
     return r;
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+// cp.async: a checked copy at once; the commit and the wait have nothing to do
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+    chk(src, n);
+    memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(int) {}
 struct Barrier {
     std::mutex m;
     std::condition_variable cv;
@@ -156,7 +171,8 @@ def build(tmp_dir, source: str, stop: str, harness: str, name: str) -> ctypes.CD
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's device code for the host")
     body = source[:source.index(stop)]
-    (tmp_dir / "kernel.inc").write_text(body.replace("#include <cuda_runtime.h>", ""))
+    body = "\n".join(ln for ln in body.splitlines() if not ln.startswith("#include <cuda_"))
+    (tmp_dir / "kernel.inc").write_text(body)
     (tmp_dir / "shim.h").write_text(SHIM)
     (tmp_dir / "harness.cpp").write_text(harness)
     out = tmp_dir / f"lib{name}.so"

@@ -839,6 +839,73 @@ def test_dwt97_kernel_rounds_each_product_and_sum(cuda):
     assert _same_bits(got, ref)
 
 
+# K-n through every level as inverse_transform calls it (one launch a
+# level, out of place): a dist97 tile, a 4K plane, and a height one above a
+# multiple of K-n's 56-row tile at odd origins
+@pytest.mark.parametrize("h,w,y0,x0,nl", [(1024, 1024, 0, 0, 5), (2160, 3840, 0, 0, 5),
+                                          (113, 200, 1, 3, 3)],
+                         ids=["1024x1024 tile", "2160x3840 plane", "113 rows, odd origin"])
+def test_dwt97_inv_levels_kernel_equals_plain(cuda, h, w, y0, x0, nl):
+    from grok_tpu_torch.core.rect import Rect
+
+    rect = Rect(x0, y0, x0 + w, y0 + h)
+    levels = [(r.height, r.width, r.y0 & 1, r.x0 & 1) for r in reversed(tr._levels(rect, nl))]
+    rng = np.random.default_rng(h + w + nl)
+    plane = torch.from_numpy((rng.standard_normal((h, w)) * 400).astype(np.float32))
+    ref = plane.clone()
+    for lv in levels:
+        tr.dwt97_inv_level_plain(ref, *lv)
+    on_card = plane.to(cuda)
+    before = _launches("dwt97_inv_level")
+    got = tr.dwt97_inv_levels(on_card, levels)
+    torch.cuda.synchronize()
+    assert _launches("dwt97_inv_level") == before + len(levels)
+    assert _same_bits(got, ref)
+    assert _same_bits(on_card, plane), "the packed plane is only read"
+
+
+def _fma_inv97_row(y: np.ndarray) -> np.ndarray:
+    """One inverse 9/7 row (parity 0) with every x - c * (l + r) fused, as
+    a contracting compiler emits it (float64 holds the float32 product
+    exactly)."""
+    from grok_tpu_torch.ops.transform import ALPHA, BETA, DELTA, GAMMA, INV_K97, K97
+    f32 = np.float32
+    n = len(y)
+    sn = (n + 1) // 2
+    s, d = y[:sn].astype(np.float32) * f32(K97), y[sn:].astype(np.float32) * f32(INV_K97)
+    dn = len(d)
+
+    def fms(c, t, acc):
+        return f32(np.float64(acc) - np.float64(f32(c)) * np.float64(t))
+    for c, tgt in ((DELTA, "s"), (GAMMA, "d"), (BETA, "s"), (ALPHA, "d")):
+        if tgt == "s":
+            s = np.array([fms(c, f32(d[max(i - 1, 0)] + d[min(i, dn - 1)]), s[i])
+                          for i in range(sn)])
+        else:
+            d = np.array([fms(c, f32(s[j] + s[min(j + 1, sn - 1)]), d[j]) for j in range(dn)])
+    out = np.empty(n, dtype=np.float32)
+    out[0::2], out[1::2] = s, d
+    return out
+
+
+def test_dwt97_inv_kernel_rounds_each_product_and_sum(cuda):
+    """A row whose fused multiply-add inverse differs from the two-rounding
+    one: K-n (built with -fmad=false) must give the two-rounding one."""
+    for seed in range(100):
+        row = (np.random.default_rng(seed).standard_normal((1, 64)) * 1000).astype(np.float32)
+        ref = torch.from_numpy(row.copy())
+        tr.dwt97_inv_level_plain(ref, 1, 64, 0, 0)
+        if not np.array_equal(_fma_inv97_row(row[0]).view(np.int32),
+                              ref[0].numpy().view(np.int32)):
+            break
+    else:
+        pytest.fail("no row tells a fused multiply-add from two roundings")
+    got = torch.from_numpy(row).to(cuda)
+    tr.dwt97_inv_level(got, 1, 64, 0, 0)
+    torch.cuda.synchronize()
+    assert _same_bits(got, ref)
+
+
 @pytest.mark.parametrize("h,w", [(19, 22), (2160, 3840)])
 def test_quant_kernels_equal_plain(cuda, h, w):
     rng = np.random.default_rng(h)
@@ -889,11 +956,13 @@ def test_97_path_on_card_equals_plain_path(cuda, ht):
 
 
 # ------------------------------------- rate control: K-p, K-e's energy, K-q
-# (24, 16, 16, 24): magnitudes up to 2^24, where the decreases reach 2^49
-# and their partial sums round, so only a sum in the plain version's order
-# agrees
+# K-p sums a pass as an exact int64 reduction while npos * 4^(p+2) <= 2^53
+# and keeps the plain version's order above: (24, 16, 16, 24) reaches planes
+# above that bound (20 for 256 positions); at (12, 16, 16, 30) the
+# refinements' sums pass 2^53 and round, so only the ordered sum agrees
 @pytest.mark.parametrize("n,h,w,bits", [(24, 64, 64, 12), (24, 13, 16, 9), (24, 7, 5, 12),
-                                        (12, 32, 32, 17), (24, 16, 16, 24)])
+                                        (12, 32, 32, 17), (24, 16, 16, 24),
+                                        (12, 16, 16, 30)])
 def test_pass_dist_kernel_equals_plain(cuda, n, h, w, bits):
     c, lanes, pmax = _batch(h * w + bits + 3, n, h, w, _STYLES, bits=bits)
     pmaxc = -(-pmax // 4) * 4
