@@ -43,10 +43,15 @@ line):
               lossy97 batch (K-p's plain on the card, K-q's on the CPU),
               with K-p's passes summed by the exact reduction and by the
               ordered chain, the record-row bytes it reads, its launch and
-              ptxas; K-n as inverse_transform calls it (dwt97_inv_levels,
-              15 launches an image, warm and cold) and by its in-place
-              one-level entry, each level of a component alone (C entry),
-              a 1024x1024 tile's five levels, its launch and ptxas; K-r
+              ptxas; K-g, K-k and K-n as inverse_transform and
+              forward_transform call them (dwt53_inv_levels,
+              dwt97_fwd_levels, dwt97_inv_levels: 15 launches an image,
+              warm and cold) and by their in-place one-level entries, each
+              level of a component alone (C entry), a 1024x1024 tile's five
+              levels, their launches and ptxas, and the stages they run in
+              (the 5/3 decode's inverse, K-g and K-h; the 9/7 encode's
+              transform, K-j, K-k and K-l; the 9/7 decode's inverse, K-m,
+              K-n and K-o: host enqueue, wall and device ms); K-r
               and K-s (the Part-2 MCT with M3 and back) and K-t (a packed
               plane shifted up and down) on the whole image, plain on the
               card; K-u, K-v and K-b/K-g/K-k/K-n's horizontal halves on the
@@ -665,13 +670,48 @@ def dec_inputs(torch, plan, numbps, npasses, seg_len, buf, idx=None, keep=None, 
 
 
 def ptxas(stem):
-    """What ``-Xptxas -v`` reported for csrc/<stem>.cu: registers and
-    spills."""
+    """What ``-Xptxas -v`` reported for csrc/<stem>.cu: each function it
+    compiled, its registers and spills."""
     from grok_tpu_torch import kernels
 
     log = kernels.BUILD_DIR / f"{stem}.log"
     return [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln or "spill" in ln] if log.exists() else []
+            if "registers" in ln or "spill" in ln or "entry function" in ln] \
+        if log.exists() else []
+
+
+def level_figures(torch, tr, kernels, timer, name, occupancy, tile, plane, lv4k, run_levels):
+    """The figures of a wavelet kernel that runs one launch a level (K-g,
+    K-k, K-n, kernel ``name`` of csrc/<stem>.cu): its launch (threads,
+    shared bytes and blocks resident an SM from the C entry ``occupancy``,
+    the waves of each 4K level at ``tile`` (rows, columns) a block), each
+    level ``lv4k`` of ``plane`` alone by the C entry, a 1024x1024 tile's
+    five levels through ``run_levels`` (as the distributed paths run a
+    tile) and whether they equal the plain version's on the CPU, and
+    ptxas."""
+    stem = kernels.KERNELS[name].source.rsplit(".", 1)[0]
+    threads, smem, blocks = c_ints(kernels, f"{stem}.cu", occupancy)
+    sms = torch.cuda.get_device_properties(plane.device).multi_processor_count
+    out = torch.empty_like(plane)
+    launch = tr.level_launcher(name, plane.device)
+    fwd = name == "dwt97_fwd_level"  # the forward's LL quadrant goes to an output
+
+    def level_c(lv):
+        return lambda: launch(plane, out if fwd else plane, out, *lv)
+    tile1k = plane[:1024, :1024].contiguous()
+    lv1k = [(1024 >> k, 1024 >> k, 0, 0) for k in range(5)]
+    if not fwd:
+        lv1k.reverse()
+    got = run_levels(tile1k, lv1k).cpu()
+    ref = run_levels(tile1k.cpu(), lv1k)
+    return dict(
+        launch=dict(threads_a_block=threads, shared_bytes_a_block=smem, blocks_per_sm=blocks,
+                    waves_4k_levels=[-(-(-(-h // tile[0]) * -(-w // tile[1])) // (blocks * sms))
+                                     for h, w, _, _ in lv4k]),
+        levels_4k_ms={f"{lv[0]}x{lv[1]}": timer.warm(level_c(lv)) for lv in lv4k},
+        tile_1024_ms=timer.warm(lambda: run_levels(tile1k, lv1k)),
+        tile_1024_equal=torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+        ptxas=ptxas(stem))
 
 
 def c_ints(kernels, source, entry, *args, outs=3):
@@ -1536,25 +1576,41 @@ def main() -> int:
               f"segments {seg_bytes} B", plain_shape=sample, sample_checks=f_checks, **kf)
     del hbuf, hdata, batch
 
-    # K-g / K-h on the whole image, from the packed planes back to samples
-    inv_levels = [lv for c in range(NC) for lv in reversed(levels[5 * c:5 * c + 5])]
+    # K-g / K-h on the whole image, from the packed planes back to samples.
+    # K-g as inverse_transform calls it: a component's levels coarsest
+    # first, one launch each, into a new plane (dwt53_inv_levels); the
+    # in-place one-level entry (a launch and a copy a level) checked too
+    inv_lv = [list(reversed(levels[5 * c:5 * c + 5])) for c in range(NC)]
 
     def idwt_all(fn, ps):
-        for c, p in enumerate(ps):
-            for (h, w, py, px) in reversed(levels[5 * c:5 * c + 5]):
+        for p, lv in zip(ps, inv_lv):
+            for (h, w, py, px) in lv:
                 fn(p, h, w, py, px)
-    kern = [p.clone() for p in coeffs]
+
+    def inv53(ps):
+        return [tr.dwt53_inv_levels(p, lv) for p, lv in zip(ps, inv_lv)]
+    kern = inv53(coeffs)
     plain = [p.clone() for p in coeffs]
-    idwt_all(tr.dwt53_inv_level, kern)
     idwt_all(tr.dwt53_inv_level_plain, plain)
-    err = max(int((a - b).abs().max()) for a, b in zip(kern, plain))
-    scratch = [p.clone() for p in coeffs]  # timed in place, as K-b is
+    in_place = [p.clone() for p in coeffs]
+    idwt_all(tr.dwt53_inv_level, in_place)
+    err = max(int((a - b).abs().max()) for a, b in zip(kern + in_place, plain + plain))
+    kg_fig = dict(in_place_entry_equal=all(torch.equal(a, b) for a, b in zip(in_place, plain)),
+                  **level_figures(torch, tr, kernels, timer, "dwt53_inv_level",
+                                  "dwt53_inv_occupancy", (60, 64), coeffs[0], inv_lv[0],
+                                  tr.dwt53_inv_levels))
+    rects53 = [g.rect for g in tp.geoms]
+
+    def inverse53_chain():  # the 5/3 decode's inverse stage: K-g, K-h
+        tr.inverse_transform(coeffs, rects53, [5] * NC, [8] * NC, [False] * NC, True)
+    kg_fig["inverse_stage"] = chain_times(torch, inverse53_chain)
+    scratch = [p.clone() for p in coeffs]
     stats["dwt53_inv_level"] = dict(
-        max_abs_err=err,
-        **timer.row(lambda: idwt_all(tr.dwt53_inv_level, scratch), bytes_=lvl_bytes),
+        max_abs_err=err, **timer.row(lambda: inv53(coeffs), cold=True, bytes_=lvl_bytes),
         plain_ms=cuda_ms(torch, lambda: idwt_all(tr.dwt53_inv_level_plain, scratch)),
-        bytes=lvl_bytes, ops=sum(9 * h * w for (h, w, _, _) in inv_levels),
-        shape="5 levels x 3 comps to 2160x3840 (ms per image)")
+        bytes=lvl_bytes, ops=sum(9 * h * w for (h, w, _, _) in levels),
+        shape="5 levels x 3 comps to 2160x3840 int32 (ms per image, dwt53_inv_levels: "
+              "15 launches)", **kg_fig)
     rng8 = [(0, 255)] * NC
     k_out = tr.rct_inv_dc_clip([p.clone() for p in kern], dcs, rng8, True)
     p_out = tr.rct_inv_dc_clip_plain([p.clone() for p in kern], dcs, rng8, True)
@@ -1567,7 +1623,7 @@ def main() -> int:
                                      bytes_=6 * 4 * W * H),
         plain_ms=cuda_ms(torch, lambda: tr.rct_inv_dc_clip_plain(kern, dcs, rng8, True)),
         bytes=6 * 4 * W * H, ops=10 * W * H, shape=f"3 x {H}x{W} int32")
-    del kern, plain, k_out, p_out, scratch
+    del kern, plain, in_place, k_out, p_out, scratch
 
     # K-j ... K-o on the whole image: the 9/7 + ICT chain, each kernel on
     # the previous one's output, against its plain version on the card
@@ -1593,19 +1649,37 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: tr.dc_ict_fwd_plain(planes, dcs, True)),
         bytes=6 * 4 * npx, ops=15 * npx, op_rate=FP32_OPS_PER_S,
         shape=f"3 x {H}x{W} int32 -> float32")
-    kern = [p.clone() for p in f_in]
+    # K-k as forward_transform calls it: a component's levels finest first,
+    # one launch each, into a new plane (dwt97_fwd_levels); the in-place
+    # one-level entry (a launch and a copy a level) checked too
+    fwd_lv = [levels[5 * c:5 * c + 5] for c in range(NC)]
+
+    def fwd97(ps):
+        return [tr.dwt97_fwd_levels(p, lv) for p, lv in zip(ps, fwd_lv)]
+    kern = fwd97(f_in)
     plain = [p.clone() for p in f_in]
-    dwt_all(tr.dwt97_fwd_level, kern)
     dwt_all(tr.dwt97_fwd_level_plain, plain)
-    scratch = [p.clone() for p in f_in]  # timed in place, as K-b is
+    in_place = [p.clone() for p in f_in]
+    dwt_all(tr.dwt97_fwd_level, in_place)
+    kk_fig = dict(in_place_entry_equal=err_of(in_place, plain) == 0, **level_figures(
+        torch, tr, kernels, timer, "dwt97_fwd_level", "dwt97_fwd_occupancy", (56, 64), f_in[0],
+        fwd_lv[0], tr.dwt97_fwd_levels))
+    rects97 = [g.rect for g in tp97.geoms]
+
+    def forward97_chain():  # the 9/7 encode's transform stage: K-j, K-k, K-l
+        tr.forward_transform(planes, rects97, [5] * NC, dcs, True, True, bands)
+    kk_fig["transform_stage"] = chain_times(torch, forward97_chain)
+    scratch = [p.clone() for p in f_in]
     lift_bytes = sum(8 * h * w for (h, w, _, _) in levels)
     lift_ops = sum(26 * h * w for (h, w, _, _) in levels)  # 4 steps of 3 + a scaling, 2 axes
     stats["dwt97_fwd_level"] = dict(
-        max_abs_err=err_of(kern, plain),
-        **timer.row(lambda: dwt_all(tr.dwt97_fwd_level, scratch), bytes_=lift_bytes),
+        max_abs_err=max(err_of(kern, plain), err_of(in_place, plain)),
+        **timer.row(lambda: fwd97(f_in), cold=True, bytes_=lift_bytes),
         plain_ms=cuda_ms(torch, lambda: dwt_all(tr.dwt97_fwd_level_plain, scratch)),
         bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S,
-        shape="5 levels x 3 comps from 2160x3840 float32 (ms per image)")
+        shape="5 levels x 3 comps from 2160x3840 float32 (ms per image, dwt97_fwd_levels: "
+              "15 launches)", **kk_fig)
+    del in_place
     q_k = [tr.quant_deadzone(p, b) for p, b in zip(kern, bands)]
     q_p = [tr.quant_deadzone_plain(p, b) for p, b in zip(kern, bands)]
     stats["quant_deadzone"] = dict(
@@ -1713,8 +1787,6 @@ def main() -> int:
     # K-n as inverse_transform calls it: a component's levels coarsest first,
     # one launch each, into a new plane (dwt97_inv_levels); the in-place
     # one-level entry (a launch and a copy a level) checked too
-    inv_lv = [list(reversed(levels[5 * c:5 * c + 5])) for c in range(NC)]
-
     def inv97(ps):
         return [tr.dwt97_inv_levels(p, lv) for p, lv in zip(ps, inv_lv)]
     kern = inv97(d_k)
@@ -1722,31 +1794,10 @@ def main() -> int:
     idwt_all(tr.dwt97_inv_level_plain, plain)
     in_place = [p.clone() for p in d_k]
     idwt_all(tr.dwt97_inv_level, in_place)
-    threads_n, smem_n, blocks_n = c_ints(kernels, "dwt97.cu", "dwt97_inv_occupancy")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def tiles(h, w):
-        return -(-h // 56) * -(-w // 64)
-    out0, launch_n = torch.empty_like(d_k[0]), tr.inv97_launcher(dev)
-
-    def level_c(lv):  # one level of component 0 alone, by the C entry, into out0
-        return lambda: launch_n(d_k[0], d_k[0], out0, *lv)
-    tile1k = d_k[0][:1024, :1024].contiguous()
-    lv1k = [(1024 >> k, 1024 >> k, 0, 0) for k in range(4, -1, -1)]
-    kn_fig = dict(
-        in_place_entry_equal=err_of(in_place, plain) == 0,
-        launch=dict(threads_a_block=threads_n, shared_bytes_a_block=smem_n,
-                    blocks_per_sm=blocks_n,
-                    waves_4k_levels=[-(-tiles(h, w) // (blocks_n * sms))
-                                     for h, w, _, _ in inv_lv[0]]),
-        levels_4k_ms={f"{lv[0]}x{lv[1]}": timer.warm(level_c(lv)) for lv in inv_lv[0]},
-        tile_1024_ms=timer.warm(lambda: tr.dwt97_inv_levels(tile1k, lv1k)),
-        tile_1024_equal=err_of([tr.dwt97_inv_levels(tile1k, lv1k)],
-                               [tr.dwt97_inv_levels(tile1k.cpu(), lv1k).to(dev)]) == 0,
-        ptxas=ptxas("dwt97"))
+    kn_fig = dict(in_place_entry_equal=err_of(in_place, plain) == 0, **level_figures(
+        torch, tr, kernels, timer, "dwt97_inv_level", "dwt97_inv_occupancy", (56, 64), d_k[0],
+        inv_lv[0], tr.dwt97_inv_levels))
     # the decode's inverse stage on these planes: dequantization, K-n, K-o
-    rects97 = [g.rect for g in tp97.geoms]
-
     def inverse_chain():
         tr.inverse_transform(q_k, rects97, [5] * NC, [8] * NC, [False] * NC, True, True, bands)
     kn_fig["inverse_stage"] = chain_times(torch, inverse_chain)
@@ -1757,7 +1808,7 @@ def main() -> int:
         bytes=lift_bytes, ops=lift_ops, op_rate=FP32_OPS_PER_S,
         shape="5 levels x 3 comps to 2160x3840 float32 (ms per image, dwt97_inv_levels: "
               "15 launches)", **kn_fig)
-    del in_place, tile1k, out0
+    del in_place
     o_k = tr.ict_inv_dc_round_clip(kern, dcs, rng8, True)
     o_p = tr.ict_inv_dc_round_clip_plain(kern, dcs, rng8, True)
     worst = max(int((o.cpu() - torch.from_numpy(np.ascontiguousarray(arr[:, :, c]))).abs().max())

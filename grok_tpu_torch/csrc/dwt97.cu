@@ -1,7 +1,7 @@
 // K-k dwt97_fwd_level and K-n dwt97_inv_level: one level of the forward and
 // of the inverse irreversible 9/7 wavelet (T.800 F.4.8.2 and F.3.8.2), on
-// the Mallat-packed top-left h x w region of a float32 plane (K-k in place,
-// K-n into another buffer).
+// the top-left h x w region of a float32 plane, Mallat-packed on one side
+// and in natural order on the other, each level one launch out of place.
 //
 // Replaces: the irreversible lifting inside grok_tpu/ops/jax_pipeline.py
 // make_forward_fn (:93) and make_inverse_fn (:191), i.e. ops/dwt.py forward
@@ -19,36 +19,73 @@
 // decides which phase is low-pass: sample p is low-pass iff (p & 1) == par,
 // at index p >> 1 of its phase.
 //
-// K-k (and the horizontal halves dwt97_fwd_h / dwt97_inv_h): a block stages
-// whole lines in shared memory, deinterleaved into their low-pass half s
-// [0, sn) and high-pass half d [sn, n), and runs the four lifting steps over
-// them with __syncthreads() between steps, then the 1/K and K scaling.
-// Staging the whole line makes every step clamp into the opposite-phase
-// array exactly as the native row code does (d[j] += A * (s[j] + s[min(j +
-// 1, sn - 1)]) and so on), with no halo logic. A horizontal pass gives a
-// block one row (neighbouring threads on neighbouring samples); a vertical
-// pass gives it G neighbouring columns (element k of column g at buf[k * G +
-// g], so a load of G consecutive columns is one coalesced segment). Each
-// block owns its lines, so both passes work in place; a level is two passes.
+// Edges. In natural order each lifting step updates the samples of one
+// phase from their two neighbours x - 1 and x + 1, which are of the other
+// phase. The native row code clamps those neighbours into the other phase's
+// array: forward, d[j] += A (s[j] + s[min(j + 1, sn - 1)]) for parity 0 and
+// d[j] += A (s[max(j - 1, 0)] + s[min(j, sn - 1)]) for parity 1, the s steps
+// alike. That is T.800's symmetric extension of the natural signal (x -> -x,
+// n - 1 + x -> n - 1 - x): a clamp only ever replaces a neighbour that lies
+// outside [0, n), namely -1 (reflected to 1) or n (reflected to n - 2), and
+// 1 and n - 2 are exactly the clamped samples. For parity 0, d[j] is natural
+// 2j + 1 and s[k] natural 2k: the right neighbour 2j + 2 = n exists only
+// for the last d of an even n, and s[sn - 1] = natural n - 2. For parity 1,
+// d[j] is natural 2j and s[k] natural 2k + 1: the left neighbour of d[0] is
+// -1, reflected to 1 = s[0] = s[max(-1, 0)], and the right one of the last
+// d of an odd n is n, reflected to n - 2 = s[sn - 1]. The s steps are the
+// same with the phases swapped. Reflection maps a position to one of the
+// same parity (x and -x, n - 1 + x and n - 1 - x differ by an even number,
+// n - 1 - x and n - 1 + x too) and the pair {x - 1, x + 1} to the pair
+// around the image of x; a sum of two neighbours does not depend on their
+// order. So a step applied to the extended signal leaves it symmetric, and
+// every step of the four (and the scaling, sample by sample) sees, at the
+// region's edges, exactly the values the clamps give. An axis of n = 1 has
+// no neighbours: it is neither lifted nor scaled (its reflection is the one
+// sample).
 //
-// K-n: one launch a level, both axes, 8 bytes a sample. In natural order
-// each lifting step updates a sample from its two neighbours of the other
-// phase, and the native code's clamped indices are T.800's symmetric
-// extension (x -> -x, n - 1 + x -> n - 1 - x), which the steps keep
-// symmetric. So a tile of TH x TW output samples needs its input 4 samples
-// around (one per step), reflected at the region's edges. A block stages
-// those (TH + 8) x (TW + 8) samples from their packed places by cp.async (a
-// warp row reads two runs of 36 consecutive floats, the s and the d half;
-// every copy in flight at once, no register held), lifts each
+// Tiles. A sample after one step depends on its two neighbours before it,
+// so after the four steps it depends on the samples within 4 of it. A block
+// makes a tile of outputs from its inputs and a halo of 4 around them, each
+// staged row and column reflected into the region as above; the staged halo
+// samples are lifted again by the tiles that own them, with the same
+// operations on the same values (the reflected extension is one signal,
+// whichever tile stages it), so every tile agrees bit for bit with the
+// whole-line lifting. A tile starts at an even level-local offset and the
+// halo is even, so a staged index has the parity of its natural position.
+// The halos a tile reads are other tiles' inputs, so no level writes in
+// place: each reads one buffer and writes another (transform.fwd_ping_pong
+// and inv_ping_pong run the levels).
+//
+// K-k: a block stages the (FTH + 8) x (FTW + 8) natural-order input around
+// its FTH x FTW tile by cp.async (__pipeline_memcpy_async: every copy in
+// flight at once, no register held), lifts each staged column in registers
+// (a thread a column; the vertical axis first, as the plain version), then
+// each of its FTH middle rows (a thread a row), writes each row back to
+// shared memory as its s half and its d half, and stores a row's halves as
+// two runs of FTW / 2 consecutive floats of the packed plane (32 floats,
+// 128 B, four whole sectors): the LL quadrant to one buffer, the detail
+// bands (final) to the output plane. Why 56 x 64 tiles and 96 threads: the
+// 64-column tile gives the packed rows their whole 128-B runs, the staged
+// tile (64 x 72 floats, 18,688 B) is K-n's, and 96 threads lift its 72
+// staged columns in one round (and its 56 middle rows, the third warp idle):
+// on an H100 the 4K image's 15 levels took 0.252 ms against 0.278 with 64
+// threads (the columns in two rounds) and 0.270 with 64 x 56 tiles and 64
+// threads (both passes in one round, 112-B runs), in turns (PERF.md §6).
+//
+// K-n: the mirror: a block stages the (TH + 8) x (TW + 8) packed input
+// around its TH x TW output tile from their packed places (a warp row reads
+// two runs of 36 consecutive floats, the s and the d half), lifts each
 // staged row in registers (a thread a row), then each of its TW middle
-// columns (a thread a column), and writes its TH x TW middle, a warp row 32
-// consecutive floats (128 B, four whole sectors). The staged halo rows and
-// columns are computed again by the neighbouring tiles, with the same
-// operations, so every tile agrees. The halos a tile reads are other tiles'
-// outputs, so the level writes out of place: the wrapper gives it the LL
+// columns (a thread a column), and writes its TH x TW middle in natural
+// order, a warp row 32 consecutive floats. The wrapper gives it the LL
 // quadrant (the coarser level's output) and the rest of the packed plane as
-// two sources and a destination that overlaps neither, and ping-pongs two
-// buffers over the levels (transform.dwt97_inv_levels).
+// two sources and a destination that overlaps neither.
+//
+// The horizontal halves dwt97_fwd_h / dwt97_inv_h (the sharded strip
+// wavelet) stage whole lines in shared memory, deinterleaved into their
+// low-pass half s [0, sn) and high-pass half d [sn, n), and run the four
+// lifting steps over them with __syncthreads() between steps, the clamps
+// written out; a block owns its rows, so they work in place.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -62,8 +99,8 @@
 #define K97 ((float)1.230174104914001)
 #define IK97 ((float)(1.0 / 1.230174104914001))
 
-// dynamic shared memory a block may use: a line of at most 51200 samples
-// (transform.MAX_LINE_97)
+// dynamic shared memory a block of the horizontal halves may use: a line of
+// at most 51200 samples (transform.MAX_LINE_97)
 static const int kMaxSmem = 200 * 1024;
 
 // one lifting step over a group of lines staged as buf[k * G + g]:
@@ -244,36 +281,140 @@ dwt97_inv_tile(const float* __restrict__ ll, int64_t ld_ll, const float* __restr
         if (y0 + r - HALO < h) out[(y0 + r - HALO) * ld_dst] = x[r];
 }
 
-// lines of n samples, elem_step apart, line_step between lines
+// ---------------------------------------------------------------- K-k
+// One forward level in one launch, out of place: a block lifts a FTH x FTW
+// tile of the natural-order input and writes it to its packed places.
+#define FTH 56          // input rows a tile
+#define FTW 64          // input columns a tile: a row's halves are runs of 32
+#define FTR (FTH + 2 * HALO)  // tile rows staged: 64
+#define FTC (FTW + 2 * HALO)  // tile columns staged: 72
+#define FTP (FTC + 1)         // pitch of a staged row (odd: a column reads no bank twice)
+#define FWD_THREADS 96        // FTC columns, then FTH rows, a thread each
+
+// x[c] += k * (x[c - 1] + x[c + 1]) for c = FIRST, FIRST + 2, ... inside
+// (0, N - 1): the line's ends lack a neighbour and go stale
+template <int N, int FIRST>
+__device__ __forceinline__ void fwd_step(float (&x)[N], float k) {
+#pragma unroll
+    for (int c = FIRST == 0 ? 2 : 1; c < N - 1; c += 2)
+        x[c] = __fadd_rn(x[c], __fmul_rn(k, __fadd_rn(x[c - 1], x[c + 1])));
+}
+
+// one axis of the forward on a line in registers, sample c low-pass iff
+// (c & 1) == PAR: d += A (s + s), s += B (d + d), d += G (s + s),
+// s += D (d + d), then s / K, d * K -- the plain version's operations in its
+// order. After the four steps samples [HALO, N - HALO) are right.
+template <int N, int PAR>
+__device__ __forceinline__ void fwd97_line(float (&x)[N]) {
+    fwd_step<N, 1 - PAR>(x, A97);
+    fwd_step<N, PAR>(x, B97);
+    fwd_step<N, 1 - PAR>(x, G97);
+    fwd_step<N, PAR>(x, D97);
+#pragma unroll
+    for (int c = 0; c < N; ++c) x[c] = __fmul_rn(x[c], (c & 1) == PAR ? IK97 : K97);
+}
+
+// src: the natural-order input, row stride ld; ll: where the packed LL
+// quadrant goes (rows [0, snv), columns [0, snh)), stride ld_ll; dst: the
+// rest of the packed output, stride ld_dst (ll may be dst, with ld_ll ==
+// ld_dst). A tile stages rows y0 - HALO .. and columns x0 - HALO .. of src
+// (each reflected into the region), lifts every staged column in registers
+// (a thread a column), then its FTH middle rows (a thread a row), which it
+// leaves in shared memory as [s half | d half], and writes each middle
+// row's halves, a warp a half. An axis of one sample is neither lifted nor
+// scaled.
+__global__ void __launch_bounds__(FWD_THREADS)
+dwt97_fwd_tile(const float* __restrict__ src, int64_t ld, float* __restrict__ ll,
+               int64_t ld_ll, float* __restrict__ dst, int64_t ld_dst, int h, int w, int py,
+               int px) {
+    extern __shared__ float s_tile[];  // FTR x FTP
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int y0 = blockIdx.y * FTH, x0 = blockIdx.x * FTW;
+    int sx[(FTC + 31) / 32];  // this lane's staged columns lane, lane + 32, ...
+#pragma unroll
+    for (int k = 0; k < (FTC + 31) / 32; ++k) sx[k] = reflect(x0 - HALO + lane + 32 * k, w);
+#pragma unroll 8
+    for (int r = warp; r < FTR; r += FWD_THREADS / 32) {  // copies in flight, no registers held
+        const float* row = src + reflect(y0 - HALO + r, h) * ld;
+#pragma unroll
+        for (int k = 0; k < (FTC + 31) / 32; ++k)
+            if (lane + 32 * k < FTC)
+                __pipeline_memcpy_async(&s_tile[r * FTP + lane + 32 * k], row + sx[k],
+                                        sizeof(float));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (h > 1) {  // columns: every staged one, its FTH middle rows kept
+        for (int c = tid; c < FTC; c += FWD_THREADS) {
+            float x[FTR];
+#pragma unroll
+            for (int r = 0; r < FTR; ++r) x[r] = s_tile[r * FTP + c];
+            if (py) fwd97_line<FTR, 1>(x); else fwd97_line<FTR, 0>(x);
+#pragma unroll
+            for (int r = HALO; r < HALO + FTH; ++r) s_tile[r * FTP + c] = x[r];
+        }
+        __syncthreads();
+    }
+    for (int i = tid; i < FTH; i += FWD_THREADS) {  // rows: staged row HALO + i
+        float* row = s_tile + (HALO + i) * FTP;
+        float x[FTC];
+#pragma unroll
+        for (int c = 0; c < FTC; ++c) x[c] = row[c];
+        if (w > 1) {
+            if (px) fwd97_line<FTC, 1>(x); else fwd97_line<FTC, 0>(x);
+        }
+        // middle column HALO + c is natural x0 + c: s at c >> 1 if (c & 1) == px
+#pragma unroll
+        for (int c = 0; c < FTW; ++c) row[((c & 1) == px ? 0 : FTW / 2) + (c >> 1)] = x[HALO + c];
+    }
+    __syncthreads();
+    const int snv = py ? h / 2 : (h + 1) / 2, snh = px ? w / 2 : (w + 1) / 2;
+    const int j = lane;  // sample j of a half: natural x0 + 2j + its phase
+    if (j >= FTW / 2) return;
+    for (int i = warp; i < 2 * FTH; i += FWD_THREADS / 32) {
+        const int r = i >> 1, d = i & 1;
+        const int y = y0 + r, x = x0 + 2 * j + (d ? 1 - px : px);
+        if (y >= h || x >= w) continue;
+        const int yp = packed(y, py, snv);
+        float* out = !d && yp < snv ? ll + yp * ld_ll : dst + yp * ld_dst;
+        out[(d ? snh : 0) + (x >> 1)] = s_tile[(HALO + r) * FTP + d * (FTW / 2) + j];
+    }
+}
+
+// lines of n samples, line_step apart: the rows of the horizontal halves, a
+// block a row
 template <bool FWD>
-static int run_lines(float* plane, int n, int nlines, int64_t elem_step,
-                     int64_t line_step, int par, cudaStream_t st) {
+static int run_lines(float* plane, int n, int nlines, int64_t line_step, int par,
+                     cudaStream_t st) {
     if (n <= 1 || nlines <= 0) return 0;  // a lone sample stays as it is
     if ((int64_t)n * 4 > kMaxSmem) return (int)cudaErrorInvalidValue;
-    int G = 1;
-    if (elem_step != 1)  // vertical: several neighbouring columns a block
-        while (G < 32 && (int64_t)n * 4 * G * 2 <= 96 * 1024) G *= 2;
-    const size_t smem = (size_t)n * G * 4;
     int rc = (int)cudaFuncSetAttribute(dwt97_lines<FWD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (rc) return rc;
-    const int threads = 256;
-    const int blocks = (nlines + G - 1) / G;
-    dwt97_lines<FWD><<<blocks, threads, smem, st>>>(plane, n, nlines, G, elem_step,
-                                                line_step, par);
+    dwt97_lines<FWD><<<nlines, 256, (size_t)n * 4, st>>>(plane, n, nlines, 1, 1, line_step, par);
     return (int)cudaGetLastError();
 }
 
-// plane: packed float32 plane with row stride ld; the level is its top-left
-// h x w with origin parities py, px. Forward: vertical, then horizontal.
-extern "C" int dwt97_fwd_level(void* plane, int ld, int h, int w, int py, int px,
-                               void* stream) {
+// a K-k tile's threads and shared bytes, and its blocks resident on one SM
+extern "C" int dwt97_fwd_occupancy(int* threads, int* smem, int* blocks) {
+    *threads = FWD_THREADS;
+    *smem = FTR * FTP * (int)sizeof(float);
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dwt97_fwd_tile, *threads,
+                                                              *smem);
+}
+
+// Forward, one launch: the level of the natural-order src into the packed
+// ll (its LL quadrant) and dst (the rest; see dwt97_fwd_tile); neither may
+// overlap src.
+extern "C" int dwt97_fwd_level(const void* src, int64_t ld, void* ll, int64_t ld_ll, void* dst,
+                               int64_t ld_dst, int h, int w, int py, int px, void* stream) {
     if (h <= 0 || w <= 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    float* p = (float*)plane;
-    int rc = run_lines<true>(p, h, w, ld, 1, py, st);
-    if (rc) return rc;
-    return run_lines<true>(p, w, h, 1, ld, px, st);
+    static_assert(FTW / 2 <= 32 && FTC <= 96 && FWD_THREADS % 32 == 0, "a warp a half row");
+    const dim3 grid((w + FTW - 1) / FTW, (h + FTH - 1) / FTH);
+    dwt97_fwd_tile<<<grid, FWD_THREADS, FTR * FTP * sizeof(float), (cudaStream_t)stream>>>(
+        (const float*)src, ld, (float*)ll, ld_ll, (float*)dst, ld_dst, h, w, py, px);
+    return (int)cudaGetLastError();
 }
 
 // a K-n tile's threads and shared bytes, and its blocks resident on one SM
@@ -301,10 +442,10 @@ extern "C" int dwt97_inv_level(const void* ll, int64_t ld_ll, const void* src, i
 // grok_tpu/parallel/mesh.py:207, :229, with the origin parity px).
 extern "C" int dwt97_fwd_h(void* plane, int ld, int h, int w, int px, void* stream) {
     if (h <= 0 || w <= 0) return 0;
-    return run_lines<true>((float*)plane, w, h, 1, ld, px, (cudaStream_t)stream);
+    return run_lines<true>((float*)plane, w, h, ld, px, (cudaStream_t)stream);
 }
 
 extern "C" int dwt97_inv_h(void* plane, int ld, int h, int w, int px, void* stream) {
     if (h <= 0 || w <= 0) return 0;
-    return run_lines<false>((float*)plane, w, h, 1, ld, px, (cudaStream_t)stream);
+    return run_lines<false>((float*)plane, w, h, ld, px, (cudaStream_t)stream);
 }

@@ -94,7 +94,7 @@ KERNELS: dict[str, Kernel] = {
                (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P)),
         Kernel("dwt53_inv_level", "dwt53_inv.cu",
                "grok_tpu/ops/jax_pipeline.py:191 (K2-inv: dwt.inverse / inv53_axis)",
-               (_P, _P, _I32, _I32, _I32, _I32, _I32, _P)),
+               (_P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _P)),
         Kernel("rct_inv_dc_clip", "rct_inv.cu",
                "grok_tpu/ops/jax_pipeline.py:198-220 (K2-inv: rct_inverse, DC shift, clip)",
                (_P, _P, _P, _I64) + (_I32,) * 10 + (_P,)),
@@ -108,7 +108,7 @@ KERNELS: dict[str, Kernel] = {
         Kernel("dwt97_fwd_level", "dwt97.cu",
                "grok_tpu/ops/jax_pipeline.py:93 (K2-fwd irreversible: dwt.forward / "
                "fwd97_axis)",
-               (_P, _I32, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+               (_P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
         Kernel("quant_deadzone", "quant97.cu",
                "grok_tpu/ops/jax_pipeline.py:96-102 (K2-fwd irreversible: dead-zone "
                "quantization)",

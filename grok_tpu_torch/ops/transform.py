@@ -18,9 +18,11 @@ wavelet runs (grok_tpu_torch/parallel/mesh.py):
   (csrc/dwt53.cu), K-g ``dwt53_inv_level`` (csrc/dwt53_inv.cu) and K-h
   ``rct_inv_dc_clip`` (csrc/rct_inv.cu), all int32 with arithmetic right
   shifts;
+- the wavelet levels of K-g, K-k and K-n run one launch a level out of
+  place, through ``dwt53_inv_levels``, ``dwt97_fwd_levels`` and
+  ``dwt97_inv_levels`` (``fwd_ping_pong``, ``inv_ping_pong``);
 - irreversible: K-j ``dc_ict_fwd`` (csrc/dc_ict.cu), K-k
-  ``dwt97_fwd_level`` and K-n ``dwt97_inv_level`` (csrc/dwt97.cu; the
-  decode runs K-n's levels out of place through ``dwt97_inv_levels``), K-l
+  ``dwt97_fwd_level`` and K-n ``dwt97_inv_level`` (csrc/dwt97.cu), K-l
   ``quant_deadzone`` and K-m ``dequant_midbin`` (csrc/quant97.cu) and K-o
   ``ict_inv_dc_round_clip`` (csrc/ict_inv.cu), float32 with every product
   and every sum rounded on its own, as the host path computes them (the
@@ -237,9 +239,9 @@ def forward_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels:
                 dwt53_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
     else:
         out = dc_ict_fwd(planes, dcs, mct) if custom is None else dc_mct_fwd(planes, dcs, custom)
-        for plane, rect, nl in zip(out, rects, num_levels):
-            for cur in _levels(rect, nl):
-                dwt97_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
+        out = [dwt97_fwd_levels(plane, [(r.height, r.width, r.y0 & 1, r.x0 & 1)
+                                        for r in _levels(rect, nl)])
+               for plane, rect, nl in zip(out, rects, num_levels)]
         out = [quant_deadzone(plane, b) for plane, b in zip(out, bands)]
     for plane, s in zip(out, rois or ()):
         if s:
@@ -247,26 +249,122 @@ def forward_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels:
     return out
 
 
+# ============================================= wavelet levels out of place
+def _check_levels(name: str, plane: torch.Tensor, levels, dtype) -> torch.device:
+    """The device of a ``dtype`` plane that holds every level (h, w, ...)."""
+    _check_plane(plane, "plane", dtype)
+    for h, w, *_ in levels:
+        if h > plane.shape[0] or w > plane.shape[1]:
+            raise ValueError("level region exceeds the plane")
+    dev = plane.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def level_launcher(name: str, dev: torch.device):
+    """The launch of K-g, K-k or K-n (kernel ``name``) on ``dev``'s current
+    stream, ``launch(a, b, c, h, w, py, px)``. The inverses (K-g, K-n): the
+    level of the packed ``a`` (its LL quadrant) and ``b`` (the rest) into
+    ``c`` in natural order. The forward (K-k): the level of the
+    natural-order ``a`` into the packed ``b`` (its LL quadrant) and ``c``
+    (the rest). Neither output may overlap an input."""
+    call, stream = kernels.KERNELS[name].call, kernels.stream_ptr(dev)
+
+    def launch(a, b, c, h, w, py, px):
+        call(a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), c.data_ptr(), c.stride(0),
+             h, w, py, px, stream)
+    return launch
+
+
+def fwd_ping_pong(plane: torch.Tensor, levels, launch) -> torch.Tensor:
+    """The forward launches over ``levels`` (h, w, py, px), finest first,
+    each out of place: level i reads its natural-order input from level
+    i - 1's LL quadrant (the plane for the first) and writes its detail
+    bands to the buffer returned, its LL quadrant to the next level's input:
+    two scratches in turns, the first the size of the second level, the
+    other of the third; the last level's LL quadrant goes to the buffer
+    returned too. The plane is only read; a plane larger than the first
+    level keeps its outside in the buffer returned."""
+    h0, w0 = levels[0][:2]
+    out = plane.new_empty(plane.shape) if (h0, w0) == tuple(plane.shape) else plane.clone()
+    tmps = [plane.new_empty(lv[:2]) for lv in levels[1:3]]
+    src = plane
+    for i, (h, w, py, px) in enumerate(levels):
+        ll = out if i == len(levels) - 1 else tmps[i % 2]
+        launch(src, ll, out, h, w, py, px)
+        src = ll
+    return out
+
+
+def inv_ping_pong(plane: torch.Tensor, levels, launch) -> torch.Tensor:
+    """The inverse launches over ``levels`` (h, w, py, px), coarsest first,
+    each out of place: level i reads its LL quadrant from level i - 1's
+    output (the plane for the first) and its other bands from the plane, and
+    writes one of two buffers: the finest level the one returned, the
+    levels before it in turns that one and a scratch the size of the
+    second-finest level. A plane larger than the finest level keeps its
+    outside in the buffer returned."""
+    h0, w0 = levels[-1][:2]
+    out = plane.new_empty(plane.shape) if (h0, w0) == tuple(plane.shape) else plane.clone()
+    tmp = plane.new_empty(levels[-2][:2]) if len(levels) > 1 else None
+    ll = plane
+    for i, (h, w, py, px) in enumerate(levels):
+        dst = out if (len(levels) - 1 - i) % 2 == 0 else tmp
+        launch(ll, plane, dst, h, w, py, px)
+        ll = dst
+    return out
+
+
+def _run_levels(name: str, plain, ping_pong, dtype, plane: torch.Tensor,
+                levels) -> torch.Tensor:
+    """Kernel ``name``'s ``levels`` (h, w, py, px) on ``plane`` in the
+    order given: the tensor that holds the result, the plane itself on the
+    CPU (``plain`` in place, a level at a time), a new one on the card (one
+    launch a level through ``ping_pong``, the plane left as it was)."""
+    levels = [lv for lv in levels if lv[0] and lv[1]]
+    dev = _check_levels(name, plane, levels, dtype)
+    if not levels:
+        return plane
+    if dev.type == "cpu":
+        for lv in levels:
+            plain(plane, *lv)
+        return plane
+    return ping_pong(plane, levels, level_launcher(name, dev))
+
+
+def _level_in_place(name: str, plain, dtype, fwd: bool, plane: torch.Tensor, h: int, w: int,
+                    py: int, px: int) -> None:
+    """One level of kernel ``name`` in place: ``plain`` on the CPU; on the
+    card one launch into a scratch region, copied back."""
+    dev = _check_levels(name, plane, [(h, w)], dtype)
+    if h == 0 or w == 0:
+        return
+    if dev.type == "cpu":
+        plain(plane, h, w, py, px)
+        return
+    out = plane.new_empty((h, w))
+    level_launcher(name, dev)(plane, out if fwd else plane, out, h, w, py, px)
+    plane[:h, :w].copy_(out)
+
+
 # ============================================= K-g: one inverse 5/3 level
 def dwt53_inv_level(plane: torch.Tensor, h: int, w: int, py: int, px: int) -> None:
     """One inverse 5/3 level, in place: the Mallat-packed top-left h x w
     of ``plane`` ([[LL, HL], [LH, HH]]) becomes natural order; py/px are
-    the level rect's origin parities."""
-    _check_plane(plane, "plane")
-    if h > plane.shape[0] or w > plane.shape[1]:
-        raise ValueError("level region exceeds the plane")
-    if h == 0 or w == 0:
-        return
-    dev = plane.device
-    if dev.type == "cpu":
-        dwt53_inv_level_plain(plane, h, w, py, px)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"dwt53_inv_level: unsupported device {dev}")
-    tmp = torch.empty(h * w, dtype=torch.int32, device=dev)
-    kernels.KERNELS["dwt53_inv_level"].call(
-        plane.data_ptr(), tmp.data_ptr(), plane.stride(0), h, w, py, px,
-        kernels.stream_ptr(dev))
+    the level rect's origin parities (on the card K-g writes a scratch
+    region, copied back)."""
+    _level_in_place("dwt53_inv_level", dwt53_inv_level_plain, torch.int32, False, plane, h, w,
+                    py, px)
+
+
+def dwt53_inv_levels(plane: torch.Tensor, levels) -> torch.Tensor:
+    """The inverse 5/3 of ``levels`` (h, w, py, px), coarsest first, on an
+    int32 plane: the tensor that holds the result, the plane itself on the
+    CPU (in place), a new one on the card (one K-g launch a level, the plane
+    left as it was)."""
+    return _run_levels("dwt53_inv_level", dwt53_inv_level_plain, inv_ping_pong, torch.int32,
+                       plane, levels)
 
 
 def _inv53_axis(y: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
@@ -346,8 +444,8 @@ def inverse_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels:
     of every level, coarsest first, then the inverse colour transform (or,
     9/7 only, the Part-2 MCT with the float32 [N, N] decoding matrix
     ``custom`` and the stream's ``offsets`` in place of the DC shifts), DC
-    shift, rounding and clip; returns the int32 component samples (the
-    5/3 chain works in place)."""
+    shift, rounding and clip; returns the int32 component samples (on the
+    CPU the 5/3 chain works in place)."""
     dcs = [0 if s else 1 << (p - 1) for p, s in zip(precs, signeds)]
     ranges = [(-(1 << (p - 1)), (1 << (p - 1)) - 1) if s else (0, (1 << p) - 1)
               for p, s in zip(precs, signeds)]
@@ -358,13 +456,11 @@ def inverse_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels:
         planes = [dequant_midbin(p, b) for p, b in zip(planes, bands)]
     elif custom is not None:
         raise ValueError("the Part-2 MCT takes the irreversible transform")
+    else:
+        planes = list(planes)  # the caller's list stays as it was
     for c, (rect, nl) in enumerate(zip(rects, num_levels)):
         levels = [(r.height, r.width, r.y0 & 1, r.x0 & 1) for r in reversed(_levels(rect, nl))]
-        if irreversible:
-            planes[c] = dwt97_inv_levels(planes[c], levels)
-        else:
-            for lv in levels:
-                dwt53_inv_level(planes[c], *lv)
+        planes[c] = (dwt97_inv_levels if irreversible else dwt53_inv_levels)(planes[c], levels)
     if custom is not None:
         return mct_inv_round_clip(planes, custom, dcs if offsets is None else offsets, ranges)
     if irreversible:
@@ -387,7 +483,8 @@ ICT_FWD = tuple(tuple(_f32(v) for v in row) for row in (
     (0.299, 0.587, 0.114), (-0.168736, -0.331264, 0.5), (0.5, -0.418688, -0.081312)))
 ICT_INV = tuple(tuple(_f32(v) for v in row) for row in (
     (1.0, 0.0, 1.402), (1.0, -0.344136, -0.714136), (1.0, 1.772, 0.0)))
-# the longest line K-k and K-n stage in shared memory
+# the longest line the horizontal halves dwt97_fwd_h and dwt97_inv_h stage in
+# shared memory
 MAX_LINE_97 = 50 * 1024
 
 
@@ -422,33 +519,22 @@ def dc_ict_fwd_plain(planes, dcs, ict):
 
 
 # ============================================= K-k: one 9/7 level
-def _check97(name: str, plane: torch.Tensor, levels) -> torch.device:
-    """The device of a float32 plane that holds every level (h, w, ...)."""
-    _check_plane(plane, "plane", torch.float32)
-    for h, w, *_ in levels:
-        if h > plane.shape[0] or w > plane.shape[1]:
-            raise ValueError("level region exceeds the plane")
-    dev = plane.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    return dev
-
-
 def dwt97_fwd_level(plane: torch.Tensor, h: int, w: int, py: int, px: int) -> None:
     """One forward 9/7 level, in place on a float32 plane: the top-left
     h x w becomes [[LL, HL], [LH, HH]]; py/px are the level rect's origin
-    parities. A line of one sample is left as it is."""
-    dev = _check97("dwt97_fwd_level", plane, [(h, w)])
-    if h == 0 or w == 0:
-        return
-    if dev.type == "cpu":
-        dwt97_fwd_level_plain(plane, h, w, py, px)
-        return
-    if max(h, w) > MAX_LINE_97:
-        raise UnsupportedFeatureError(
-            f"outside the ported slices: 9/7 lines longer than {MAX_LINE_97} samples")
-    kernels.KERNELS["dwt97_fwd_level"].call(plane.data_ptr(), plane.stride(0), h, w, py, px,
-                                            kernels.stream_ptr(dev))
+    parities. A line of one sample is left as it is (on the card K-k writes
+    a scratch region, copied back)."""
+    _level_in_place("dwt97_fwd_level", dwt97_fwd_level_plain, torch.float32, True, plane, h, w,
+                    py, px)
+
+
+def dwt97_fwd_levels(plane: torch.Tensor, levels) -> torch.Tensor:
+    """The forward 9/7 of ``levels`` (h, w, py, px), finest first, on a
+    float32 plane: the tensor that holds the result, the plane itself on the
+    CPU (in place), a new one on the card (one K-k launch a level, the plane
+    left as it was)."""
+    return _run_levels("dwt97_fwd_level", dwt97_fwd_level_plain, fwd_ping_pong, torch.float32,
+                       plane, levels)
 
 
 def _s_nbrs(parity: int, dn: int, sn: int, device):
@@ -497,66 +583,21 @@ def dwt97_fwd_level_plain(plane, h, w, py, px):
 
 
 # ============================================= K-n: one inverse 9/7 level
-def inv97_launcher(dev: torch.device):
-    """K-n's launch on ``dev``'s current stream, ``launch(ll, src, dst, h,
-    w, py, px)``: the level of the packed ``ll`` (its LL quadrant) and
-    ``src`` (the rest) into ``dst``, which overlaps neither."""
-    call, stream = kernels.KERNELS["dwt97_inv_level"].call, kernels.stream_ptr(dev)
-
-    def launch(ll, src, dst, h, w, py, px):
-        call(ll.data_ptr(), ll.stride(0), src.data_ptr(), src.stride(0), dst.data_ptr(),
-             dst.stride(0), h, w, py, px, stream)
-    return launch
-
-
-def inv97_ping_pong(plane: torch.Tensor, levels, launch) -> torch.Tensor:
-    """K-n's launches over ``levels`` (h, w, py, px), coarsest first, each
-    out of place: level i reads its LL quadrant from level i - 1's output
-    (the plane for the first) and its other bands from the plane, and
-    writes one of two buffers: the finest level the one returned, the
-    levels before it in turns that one and a scratch the size of the
-    second-finest level. A plane larger than the finest level keeps its
-    outside in the buffer returned."""
-    h0, w0 = levels[-1][:2]
-    out = plane.new_empty(plane.shape) if (h0, w0) == tuple(plane.shape) else plane.clone()
-    tmp = plane.new_empty(levels[-2][:2]) if len(levels) > 1 else None
-    ll = plane
-    for i, (h, w, py, px) in enumerate(levels):
-        dst = out if (len(levels) - 1 - i) % 2 == 0 else tmp
-        launch(ll, plane, dst, h, w, py, px)
-        ll = dst
-    return out
-
-
 def dwt97_inv_levels(plane: torch.Tensor, levels) -> torch.Tensor:
     """The inverse 9/7 of ``levels`` (h, w, py, px), coarsest first, on a
     float32 plane: the tensor that holds the result, the plane itself on the
     CPU (in place), a new one on the card (one K-n launch a level, the plane
     left as it was)."""
-    levels = [lv for lv in levels if lv[0] and lv[1]]
-    dev = _check97("dwt97_inv_levels", plane, levels)
-    if not levels:
-        return plane
-    if dev.type == "cpu":
-        for lv in levels:
-            dwt97_inv_level_plain(plane, *lv)
-        return plane
-    return inv97_ping_pong(plane, levels, inv97_launcher(dev))
+    return _run_levels("dwt97_inv_level", dwt97_inv_level_plain, inv_ping_pong, torch.float32,
+                       plane, levels)
 
 
 def dwt97_inv_level(plane: torch.Tensor, h: int, w: int, py: int, px: int) -> None:
     """One inverse 9/7 level, in place on a float32 plane: the
     Mallat-packed top-left h x w becomes natural order (on the card K-n
     writes a scratch region, copied back)."""
-    dev = _check97("dwt97_inv_level", plane, [(h, w)])
-    if h == 0 or w == 0:
-        return
-    if dev.type == "cpu":
-        dwt97_inv_level_plain(plane, h, w, py, px)
-        return
-    out = plane.new_empty((h, w))
-    inv97_launcher(dev)(plane, plane, out, h, w, py, px)
-    plane[:h, :w].copy_(out)
+    _level_in_place("dwt97_inv_level", dwt97_inv_level_plain, torch.float32, False, plane, h, w,
+                    py, px)
 
 
 def _inv97_axis(y: torch.Tensor, axis: int, parity: int) -> torch.Tensor:

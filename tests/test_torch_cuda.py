@@ -460,6 +460,41 @@ def test_dwt53_inv_level_kernel_equals_plain(cuda, h, w, py, px):
     assert torch.equal(got.cpu(), ref)
 
 
+# K-g through every level as inverse_transform calls it (one launch a level,
+# out of place): a dist53 tile, a 4K plane, a height one above a multiple of
+# K-g's 60-row tile at odd origins, and that with coefficients within 8 of
+# +-2^31 (every sum of two neighbours wraps)
+@pytest.mark.parametrize("h,w,y0,x0,nl,wrap", [(1024, 1024, 0, 0, 5, False),
+                                               (2160, 3840, 0, 0, 5, False),
+                                               (121, 200, 1, 3, 3, False),
+                                               (121, 200, 1, 3, 3, True)],
+                         ids=["1024x1024 tile", "2160x3840 plane", "121 rows, odd origin",
+                              "121 rows, odd origin, near 2^31"])
+def test_dwt53_inv_levels_kernel_equals_plain(cuda, h, w, y0, x0, nl, wrap):
+    from grok_tpu_torch.core.rect import Rect
+
+    rect = Rect(x0, y0, x0 + w, y0 + h)
+    levels = [(r.height, r.width, r.y0 & 1, r.x0 & 1) for r in reversed(tr._levels(rect, nl))]
+    rng = np.random.default_rng(h + w + nl)
+    if wrap:
+        near = rng.integers(0, 8, size=(h, w))
+        odd = (np.arange(h)[:, None] + np.arange(w)[None, :]) & 1
+        vals = np.where(odd, -(1 << 31) + near, (1 << 31) - 1 - near)
+    else:
+        vals = rng.integers(-(1 << 16), 1 << 16, size=(h, w))
+    plane = torch.from_numpy(vals.astype(np.int32))
+    ref = plane.clone()
+    for lv in levels:
+        tr.dwt53_inv_level_plain(ref, *lv)
+    on_card = plane.to(cuda)
+    before = _launches("dwt53_inv_level")
+    got = tr.dwt53_inv_levels(on_card, levels)
+    torch.cuda.synchronize()
+    assert _launches("dwt53_inv_level") == before + len(levels)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(on_card.cpu(), plane), "the packed plane is only read"
+
+
 @pytest.mark.parametrize("nc,prec,signed", [(1, 8, False), (3, 8, False), (3, 12, True),
                                             (4, 16, False)])
 def test_rct_inv_kernel_equals_plain(cuda, nc, prec, signed):
@@ -837,6 +872,31 @@ def test_dwt97_kernel_rounds_each_product_and_sum(cuda):
     tr.dwt97_fwd_level(got, 1, 64, 0, 0)
     torch.cuda.synchronize()
     assert _same_bits(got, ref)
+
+
+# K-k through every level as forward_transform calls it (one launch a
+# level, out of place): a dist97 tile, a 4K plane, and a height one above a
+# multiple of K-k's 56-row tile at odd origins
+@pytest.mark.parametrize("h,w,y0,x0,nl", [(1024, 1024, 0, 0, 5), (2160, 3840, 0, 0, 5),
+                                          (113, 200, 1, 3, 3)],
+                         ids=["1024x1024 tile", "2160x3840 plane", "113 rows, odd origin"])
+def test_dwt97_fwd_levels_kernel_equals_plain(cuda, h, w, y0, x0, nl):
+    from grok_tpu_torch.core.rect import Rect
+
+    rect = Rect(x0, y0, x0 + w, y0 + h)
+    levels = [(r.height, r.width, r.y0 & 1, r.x0 & 1) for r in tr._levels(rect, nl)]
+    rng = np.random.default_rng(h + w + nl)
+    plane = torch.from_numpy((rng.standard_normal((h, w)) * 400).astype(np.float32))
+    ref = plane.clone()
+    for lv in levels:
+        tr.dwt97_fwd_level_plain(ref, *lv)
+    on_card = plane.to(cuda)
+    before = _launches("dwt97_fwd_level")
+    got = tr.dwt97_fwd_levels(on_card, levels)
+    torch.cuda.synchronize()
+    assert _launches("dwt97_fwd_level") == before + len(levels)
+    assert _same_bits(got, ref)
+    assert _same_bits(on_card, plane), "the natural-order plane is only read"
 
 
 # K-n through every level as inverse_transform calls it (one launch a
