@@ -33,7 +33,13 @@ line):
               (plain on the CPU) and the whole batch (plain on the card),
               its C entry alone in turns with its wrapper, its quads, MEL
               events, stuffed bytes, launch (resident codeblocks, waves)
-              and ptxas, and its bound on the segment bytes alone; K-f's
+              and ptxas, and its bound on the segment bytes alone; K-e on
+              a seeded batch of magnitudes from 2^24 to INT32_MIN's 2^31
+              (segments and energies, plain on the CPU); K-l and K-m as the
+              chains call them, one call (one launch) a tile, warm and
+              cold, with the call's host enqueue, and on the QUANT_ODD
+              tiles (odd sizes and origins, views off 16-byte alignment,
+              ten components: two launches a call); K-f's
               sample also cut at seeded lengths and with seeded bytes
               flipped (stops and values against the plain version), its C
               entry in turns with its wrapper, its launch and ptxas, and
@@ -89,6 +95,12 @@ line):
               grok_tpu's digests; a PLAIN_CUT crop of each image coded and
               decoded on the card and by the plain path, identical; K-r,
               K-s and both entries of K-t must launch
+     slice_ht_wide  WIDE_HT_CASES (HT at WIDE_BITS = 28 bits, 5/3 and 9/7)
+              on a 64x64x3 wide_image: coefficients from 2^24 up; each
+              card stream equal to the plain path's and with grok_tpu's
+              length and SHA-256, its card decode equal to the plain
+              path's (and to the input, 5/3); every kernel of the path
+              must launch
   6. e2e      3840x2160x3 lossless53 (CompressParams(num_resolutions=6))
               compressed three times like three requests: per-stage ms,
               end-to-end ms, MP/s, bytes; each stream must have grok_tpu's
@@ -216,6 +228,11 @@ REF_SHA256 = {
                         "9ad1fc85850d30df105d0484c6b32334c357afc33a3c1f6d10b4b5928e1a3b38"),
     "roi_ht 2160x3840x3": (23759587,
                            "1fb0ed0a5dd90542253c19e7e77b67bc8fdc2257bb8ab0ec76aeda3d03348455"),
+    # under "ht <case> 64x64x3", with WIDE_HT_CASES[case] on wide_image at WIDE_BITS
+    "ht wide53 64x64x3": (41416,
+                          "de44e1b3d9ff81335d1fa1451e29d3656237759219764e284a678e7ae0053e14"),
+    "ht wide97 64x64x3": (38096,
+                          "70e6dd7efb314e5a179e91edb6663b226f91f4c7b2ace71d434fa59de5af67d7"),
     # under "dist53 ..." and "dist97 ...", with DIST53 and DIST97 (1024x1024 tiles)
     "dist53 2160x3840x3": (18526634,
                            "9dc7e7cc3f979e9b00705b2092b3c8dcd29139618d5cc54cd5de6932a36cac68"),
@@ -229,6 +246,17 @@ HT_KERNELS = ("dc_rct_fwd", "dwt53_fwd_level", "ht_cleanup_enc", "ht_cleanup_dec
 K97_KERNELS = ("dc_ict_fwd", "dwt97_fwd_level", "quant_deadzone", "ebcot_symbols", "mq_pack",
                "ebcot_decode", "dequant_midbin", "dwt97_inv_level", "ict_inv_dc_round_clip")
 P97 = dict(num_resolutions=6, irreversible=True)
+# HT at WIDE_BITS: coefficients from 2^24 up (the slice_ht_wide phase)
+WIDE_BITS = 28
+WIDE_HT_CASES = {"wide53": dict(num_resolutions=6, ht=True),
+                 "wide97": dict(num_resolutions=6, ht=True, irreversible=True)}
+WIDE_HT_KERNELS = {
+    "wide53": HT_KERNELS,
+    "wide97": ("dc_ict_fwd", "dwt97_fwd_level", "quant_deadzone", "ht_cleanup_enc",
+               "ht_cleanup_dec", "dequant_midbin", "dwt97_inv_level", "ict_inv_dc_round_clip"),
+}
+# K-l and K-m on odd tiles: (h, w, components, levels, origin (x0, y0))
+QUANT_ODD = ((1081, 1917, 3, 5, (1, 3)), (45, 77, 4, 3, (2, 3)), (70, 131, 10, 5, (1, 0)))
 # bench.py's lossy97_1bpp row: one layer at a compression ratio of 8
 P1BPP = dict(num_resolutions=6, irreversible=True, num_layers=1, layer_rates=[8])
 # slice_rc: layers with rate targets (exact simulations, or rc_algorithm=1's
@@ -443,6 +471,71 @@ def natural_image(h, w, nc=3, seed=3):
         [g] + [np.clip(g + r.integers(-20, 20, (h, w)), 0, 255) for _ in range(nc - 1)],
         axis=-1,
     ).astype(np.int32)
+
+
+def wide_image(h, w, nc, bits, seed=5):
+    """natural_image's content at ``bits`` bits: its 8-bit samples in the
+    top bits, seeded noise below."""
+    base = natural_image(h, w, nc).astype(np.int64) << (bits - 8)
+    noise = np.random.default_rng(seed).integers(0, 1 << (bits - 8), size=base.shape)
+    return (base | noise).astype(np.int32)
+
+
+def wide_blocks(n, bh, bw, seed=46):
+    """K-e's wide sample, int32 [n, bh, bw] with full heights and widths:
+    magnitudes from 2^24 to 2^31 - 1 (log-uniform), the named ones 2^24,
+    2^30 - 1, 2^30, 2^31 - 1 and INT32_MIN, and small values beside wide
+    ones (tests/test_torch_ke_host.py wide_batch)."""
+    rng = np.random.default_rng(seed)
+    mag = np.minimum(np.exp2(rng.uniform(24, 31, size=(n, bh, bw))), (1 << 31) - 1)
+    c = np.where(rng.random((n, bh, bw)) < 0.5, -1, 1) * mag.astype(np.int64)
+    c *= rng.random((n, bh, bw)) < 0.8
+    named = [1 << 24, (1 << 30) - 1, 1 << 30, (1 << 31) - 1]
+    c[1] = rng.choice(named + [-v for v in named] + [-(1 << 31)], size=(bh, bw))
+    c[2, :, ::2] = rng.integers(-3, 4, size=(bh, (bw + 1) // 2))
+    c[3, 0, 0] = -(1 << 31)
+    return c.astype(np.int32), np.full(n, bh, dtype=np.int32), np.full(n, bw, dtype=np.int32)
+
+
+def quant_odd_checks(torch, gt, tr, kernels, dev):
+    """K-l and K-m on the QUANT_ODD tiles against their plain versions on
+    the card, bit for bit, and the launches a call: the dequantization
+    reads its planes as views of one buffer one sample past 16-byte
+    alignment, as the decode's staging planes may lie."""
+    from grok_tpu_torch.codestream.compress import build_siz, build_tcp
+    from grok_tpu_torch.tile.tile_processor import TileProcessor
+
+    out = {}
+    rng = np.random.default_rng(17)
+    for h, w, nc, levels, (x0, y0) in QUANT_ODD:
+        img = gt.Image.from_array(np.zeros((h, w, nc), dtype=np.uint8))
+        img.x0, img.y0, img.x1, img.y1 = x0, y0, x0 + w, y0 + h
+        img.finalize()
+        p = gt.CompressParams(num_resolutions=levels + 1, irreversible=True)
+        tp = TileProcessor(build_siz(img, p), build_tcp(img, p), 0, "cpu")
+        tp._apply_band_quant()
+        bands = tp.band_tables()
+        shapes = [(g.rect.height, g.rect.width) for g in tp.geoms]
+        planes = [torch.from_numpy((rng.standard_normal(s) * 300).astype(np.float32)).to(dev)
+                  for s in shapes]
+        n0 = [kernels.KERNELS[k].launches for k in ("quant_deadzone", "dequant_midbin")]
+        q = tr.quant_deadzone(planes, bands)
+        sizes = [a * b for a, b in shapes]
+        flat = torch.empty(sum(sizes) + 1, dtype=torch.int32, device=dev)
+        views = [flat[1 + sum(sizes[:c]):1 + sum(sizes[:c + 1])].view(s)
+                 for c, s in enumerate(shapes)]
+        for v, a in zip(views, q):
+            v.copy_(a)
+        d = tr.dequant_midbin(views, bands)
+        launches = [kernels.KERNELS[k].launches - n for k, n in
+                    zip(("quant_deadzone", "dequant_midbin"), n0)]
+        equal = all(torch.equal(a, tr.quant_deadzone_plain(x, b))
+                    for a, x, b in zip(q, planes, bands)) and all(
+            torch.equal(a.view(torch.int32), tr.dequant_midbin_plain(v, b).view(torch.int32))
+            for a, v, b in zip(d, views, bands))
+        out[f"{nc} x {h}x{w} at ({x0}, {y0}), {levels} levels"] = dict(
+            equal=equal, launches_a_call=launches)
+    return out
 
 
 def golden_md5(planes) -> str:
@@ -1554,6 +1647,21 @@ def main() -> int:
         err_f = max(err_f, 1)
     if not ke["c_entry_equal"]:
         err_e = max(err_e, 1)
+    # K-e at magnitudes from 2^24 to INT32_MIN's 2^31: segments, lengths
+    # and energies against the plain version on the CPU
+    w_c, w_h, w_w = (torch.from_numpy(a) for a in wide_blocks(32, bh, bw))
+    w_mmax = max((2 * hc.largest_magnitude(w_c) - 1).bit_length(), 1)
+    w_k = hc.ht_cleanup_enc(w_c.to(dev), w_h.to(dev), w_w.to(dev), htab, w_mmax,
+                            want_energy=True)
+    w_p = hc.ht_cleanup_enc_plain(w_c, w_h, w_w, w_k[0].shape[1])
+    wide_ok = (torch.equal(w_k[0].cpu(), w_p[0]) and torch.equal(w_k[1].cpu(), w_p[1])
+               and torch.equal(w_k[2].cpu(), hc.block_energy_plain(w_c, w_h, w_w)))
+    ke["wide_check"] = dict(equal=wide_ok, codeblocks=32, mmax=w_mmax,
+                            magnitudes="2^24 .. 2^31 - 1 and INT32_MIN",
+                            segment_bytes=int(w_p[1].sum()))
+    if not wide_ok:
+        err_e = max(err_e, 1)
+    del w_k, w_p
     # the bytes the function must move: the samples, the segments up to
     # their lengths and the lengths (the zeros past a segment are read by
     # nothing on the path)
@@ -1680,16 +1788,21 @@ def main() -> int:
         shape="5 levels x 3 comps from 2160x3840 float32 (ms per image, dwt97_fwd_levels: "
               "15 launches)", **kk_fig)
     del in_place
-    q_k = [tr.quant_deadzone(p, b) for p, b in zip(kern, bands)]
+    # K-l and K-m as the chains call them: one call a tile over its three
+    # planes, one launch; timed warm and cold, and their host enqueue
+    q_k = tr.quant_deadzone(kern, bands)
     q_p = [tr.quant_deadzone_plain(p, b) for p, b in zip(kern, bands)]
+    odd_checks = quant_odd_checks(torch, gt, tr, kernels, dev)
+    odd_ok = all(c["equal"] for c in odd_checks.values())
     stats["quant_deadzone"] = dict(
-        max_abs_err=err_of(q_k, q_p),
-        **timer.row(lambda: [tr.quant_deadzone(p, b) for p, b in zip(kern, bands)],
-                    bytes_=8 * 3 * npx),
+        max_abs_err=max(err_of(q_k, q_p), 0.0 if odd_ok else 1e-30),
+        **timer.row(lambda: tr.quant_deadzone(kern, bands), cold=True, bytes_=8 * 3 * npx),
         plain_ms=cuda_ms(torch, lambda: [tr.quant_deadzone_plain(p, b)
                                          for p, b in zip(kern, bands)]),
         bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S,
-        shape=f"3 x {H}x{W} float32 -> int32, {len(bands[0])} bands a component")
+        shape=f"3 x {H}x{W} float32 -> int32, {len(bands[0])} bands a component, "
+              f"one launch a tile", call=chain_times(torch, lambda: tr.quant_deadzone(kern, bands)),
+        odd_checks=odd_checks)
 
     # K-p and K-q on the whole 4K lossy97 batch (the codeblocks of these
     # quantized planes): K-p against its plain version on the card, K-q
@@ -1774,16 +1887,17 @@ def main() -> int:
         plain_shape="the same batch, plain on cpu",
         sample_check=sample_checks_pq["hull_slopes"])
     del b97, hull97_dev, k_sl97
-    d_k = [tr.dequant_midbin(q, b) for q, b in zip(q_k, bands)]
+    d_k = tr.dequant_midbin(q_k, bands)
     d_p = [tr.dequant_midbin_plain(q, b) for q, b in zip(q_k, bands)]
     stats["dequant_midbin"] = dict(
-        max_abs_err=err_of(d_k, d_p),
-        **timer.row(lambda: [tr.dequant_midbin(q, b) for q, b in zip(q_k, bands)],
-                    bytes_=8 * 3 * npx),
+        max_abs_err=max(err_of(d_k, d_p), 0.0 if odd_ok else 1e-30),
+        **timer.row(lambda: tr.dequant_midbin(q_k, bands), cold=True, bytes_=8 * 3 * npx),
         plain_ms=cuda_ms(torch, lambda: [tr.dequant_midbin_plain(q, b)
                                          for q, b in zip(q_k, bands)]),
         bytes=8 * 3 * npx, ops=3 * 3 * npx, op_rate=FP32_OPS_PER_S,
-        shape=f"3 x {H}x{W} int32 -> float32, {len(bands[0])} bands a component")
+        shape=f"3 x {H}x{W} int32 -> float32, {len(bands[0])} bands a component, "
+              f"one launch a tile", call=chain_times(torch, lambda: tr.dequant_midbin(q_k, bands)),
+        odd_checks=odd_checks)
     # K-n as inverse_transform calls it: a component's levels coarsest first,
     # one launch each, into a new plane (dwt97_inv_levels); the in-place
     # one-level entry (a launch and a copy a level) checked too
@@ -2079,6 +2193,46 @@ def main() -> int:
         raise AssertionError(f"a kernel of the rate-control path never launched: {rc_counts}")
 
     lap("slices")
+
+    # HT at WIDE_BITS bits, 64x64x3, 5/3 and 9/7: coefficients from 2^24 up,
+    # which the port once refused; the card's streams against the plain
+    # path's and grok_tpu's, the decodes against the plain path's (and the
+    # input, 5/3)
+    wide = wide_image(64, 64, 3, WIDE_BITS)
+    largest = hc.largest_magnitude
+    for name, kw in WIDE_HT_CASES.items():
+        seen = []
+        hc.largest_magnitude = lambda c: seen.append(largest(c)) or seen[-1]  # noqa: E731
+        try:
+            gt.reset_launch_counts()
+            t0 = time.perf_counter()
+            w_gpu = gt.compress(gt.Image.from_array(wide, prec=WIDE_BITS),
+                                gt.CompressParams(**kw))
+            t1 = time.perf_counter()
+            wd_gpu = gt.decompress(w_gpu)
+            t2 = time.perf_counter()
+            w_counts = gt.launch_counts()
+        finally:
+            hc.largest_magnitude = largest
+        w_cpu = gt.compress(gt.Image.from_array(wide, prec=WIDE_BITS), gt.CompressParams(**kw),
+                            device="cpu")
+        wd_cpu = gt.decompress(w_gpu, device="cpu")
+        sha, ref_ok = digest_ok(w_gpu, f"ht {name} 64x64x3")
+        dec_same = all(np.array_equal(a.data, b.data) and (
+            kw.get("irreversible") or np.array_equal(a.data, wide[:, :, c]))
+            for c, (a, b) in enumerate(zip(wd_gpu.components, wd_cpu.components)))
+        missing = [k for k in WIDE_HT_KERNELS[name] if w_counts[k] <= 0]
+        emit({"phase": "slice_ht_wide", "case": name, "params": kw, "bits": WIDE_BITS,
+              "image": "64x64x3", "largest_magnitude": max(seen), "bytes": len(w_gpu),
+              "identical": w_gpu == w_cpu, "sha256": sha, "reference_digest": ref_ok,
+              "decode_equal": dec_same, "gpu_enc_ms": (t1 - t0) * 1e3,
+              "gpu_dec_ms": (t2 - t1) * 1e3, "not_launched": missing})
+        if w_gpu != w_cpu or not ref_ok or not dec_same or missing or max(seen) < 1 << 24:
+            raise AssertionError(f"slice_ht_wide {name}: the card's stream or decode differs "
+                                 f"from the plain path or grok_tpu's, or the path missed "
+                                 f"{missing} or 2^24")
+
+    lap("slice_ht_wide")
 
     # the Part-2 MCT and component ROI at 256x256: the card's streams and
     # decodes (max_layers 0 and 1) against grok_tpu's digests; then a

@@ -17,6 +17,11 @@
 // whole, the segment and the zeros past it (55.7 MB: 6,321 rows of 8,815
 // bytes), and its length; about 0.046 ms.
 //
+// Range: every int32 coefficient, INT32_MIN included (|v| = 2^31 on
+// uint32_t, as native/ht_coder.cpp takes it): exponents up to 32, so a
+// MagSgn field holds up to 32 bits, a quad's four up to 128 (mlo, mhi) and a
+// chunk's up to 4,096 (MS_WORDS), and u up to 31 (the u-code tables hold 33).
+//
 // Design: one warp a codeblock, one quad a lane. Everything but the three
 // bit writers is a function of the magnitudes, so a warp takes a quad row
 // 32 quads (a chunk) at a time, left to right:
@@ -93,6 +98,10 @@ __host__ __device__ __forceinline__ int warp_bytes_of(int bw) {
     const int nqw = (((bw + 1) >> 1) + 7) & ~7;
     return (4 * (MS_WORDS + VLC_WORDS + STATE_WORDS) + 2 * nqw + 15) & ~15;
 }
+
+// the bits of x up to its highest set one (0 for 0): __clz counts the
+// leading zeros of the 32 bits, read as an int (x above 2^31 - 1 has none)
+__device__ __forceinline__ int bit_length(uint32_t x) { return 32 - __clz((int)x); }
 
 // the 8 bits at bit q of a staging area (LSB first)
 __device__ __forceinline__ uint32_t bits8(const uint32_t* st, int q) {
@@ -280,9 +289,11 @@ ht_enc_kernel(const int32_t* __restrict__ coeffs, const int32_t* __restrict__ he
         uint32_t s[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-            const uint32_t mu = (uint32_t)(v[k] < 0 ? -v[k] : v[k]);
-            e[k] = mu ? 32 - __clz((int)(2 * mu - 1)) : 0;
-            s[k] = mu ? 2 * (mu - 1) + (v[k] < 0 ? 1u : 0u) : 0u;
+            // |v| up to 2^31 (v = INT32_MIN), its exponent up to 32 and its
+            // MagSgn value 2(mu - 1) + sign up to 2^32 - 1: all on uint32_t
+            const uint32_t mu = v[k] < 0 ? 0u - (uint32_t)v[k] : (uint32_t)v[k];
+            e[k] = mu ? bit_length(2u * mu - 1u) : 0;
+            s[k] = mu ? 2u * (mu - 1u) + (v[k] < 0 ? 1u : 0u) : 0u;
             rho |= (mu != 0) << k;
             emax = max(emax, e[k]);
             if (energy) {

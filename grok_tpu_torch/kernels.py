@@ -112,11 +112,11 @@ KERNELS: dict[str, Kernel] = {
         Kernel("quant_deadzone", "quant97.cu",
                "grok_tpu/ops/jax_pipeline.py:96-102 (K2-fwd irreversible: dead-zone "
                "quantization)",
-               (_P, _P, _I32, _I32, _P, _P, _I32, _P), FLOAT_FLAGS),
+               (_P, _P, _I32, _I32, _P), FLOAT_FLAGS),
         Kernel("dequant_midbin", "quant97.cu",
                "grok_tpu/ops/jax_pipeline.py:177-190 (K2-inv irreversible: mid-bin "
                "dequantization)",
-               (_P, _P, _I32, _I32, _P, _P, _I32, _P), FLOAT_FLAGS),
+               (_P, _P, _I32, _I32, _P), FLOAT_FLAGS),
         Kernel("dwt97_inv_level", "dwt97.cu",
                "grok_tpu/ops/jax_pipeline.py:191 (K2-inv irreversible: dwt.inverse / "
                "inv97_axis)",

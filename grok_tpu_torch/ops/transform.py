@@ -20,7 +20,8 @@ wavelet runs (grok_tpu_torch/parallel/mesh.py):
   shifts;
 - the wavelet levels of K-g, K-k and K-n run one launch a level out of
   place, through ``dwt53_inv_levels``, ``dwt97_fwd_levels`` and
-  ``dwt97_inv_levels`` (``fwd_ping_pong``, ``inv_ping_pong``);
+  ``dwt97_inv_levels`` (``fwd_ping_pong``, ``inv_ping_pong``); K-l and K-m
+  one launch a tile over its components (``quant_plan``);
 - irreversible: K-j ``dc_ict_fwd`` (csrc/dc_ict.cu), K-k
   ``dwt97_fwd_level`` and K-n ``dwt97_inv_level`` (csrc/dwt97.cu), K-l
   ``quant_deadzone`` and K-m ``dequant_midbin`` (csrc/quant97.cu) and K-o
@@ -242,7 +243,7 @@ def forward_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels:
         out = [dwt97_fwd_levels(plane, [(r.height, r.width, r.y0 & 1, r.x0 & 1)
                                         for r in _levels(rect, nl)])
                for plane, rect, nl in zip(out, rects, num_levels)]
-        out = [quant_deadzone(plane, b) for plane, b in zip(out, bands)]
+        out = quant_deadzone(out, bands)
     for plane, s in zip(out, rois or ()):
         if s:
             roi_up(plane, s)
@@ -453,7 +454,7 @@ def inverse_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels:
         if s:
             roi_down(plane, s)
     if irreversible:
-        planes = [dequant_midbin(p, b) for p, b in zip(planes, bands)]
+        planes = dequant_midbin(planes, bands)
     elif custom is not None:
         raise ValueError("the Part-2 MCT takes the irreversible transform")
     else:
@@ -644,28 +645,93 @@ def dwt97_inv_h_plain(plane, h, w, px):
 
 
 # ============================================= K-l / K-m: band quantization
-def _band_table(bands: list[tuple], dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' band table: int32 [nb, 4] (oy, ox, h, w) and float32
-    [nb] steps (rounded to float32 as the host path's _band_arrays)."""
-    rects = torch.tensor([b[:4] for b in bands], dtype=torch.int32).reshape(-1, 4)
-    steps = torch.tensor([b[4] for b in bands], dtype=torch.float32)
-    return rects.to(dev), steps.to(dev)
+QUANT_MAX_COMPS, QUANT_MAX_BANDS = 8, 112  # a launch's (csrc/quant97.cu MAX_COMPS, MAX_BANDS)
+_QUANT_PLANS: dict = {}
 
 
-def quant_deadzone(plane: torch.Tensor, bands: list[tuple]) -> torch.Tensor:
-    """Dead-zone quantization of a packed float32 plane: int32
-    sign(v) * floor(|v| / step) with each band's float32 step; ``bands``
-    lists (oy, ox, h, w, step) and tiles the plane."""
-    _check_plane(plane, "plane", torch.float32)
-    dev = plane.device
+def quant_plan(shapes: list[tuple[int, int]],
+               bands: list[list[tuple]]) -> list[tuple[list[int], np.ndarray]]:
+    """The launches of K-l or K-m over a tile's planes of ``shapes``, whose
+    ``bands[c]`` list plane c's (oy, ox, h, w, step): the components in
+    order, as many to a launch as its parameters hold, each launch as (its
+    components, int32 [nb, 6]: component within the launch, oy, ox, h, w,
+    the float32 step's bits), the bands and planes without samples left
+    out. Raises ValueError unless every band lies inside its plane and the
+    band areas sum to the plane's. Cached by geometry."""
+    key = (tuple(map(tuple, shapes)), tuple(map(tuple, bands)))
+    plan = _QUANT_PLANS.get(key)
+    if plan is not None:
+        return plan
+    if len(shapes) != len(bands):
+        raise ValueError(f"{len(shapes)} planes but {len(bands)} band lists")
+    plan, comps, rows = [], [], []
+
+    def close():
+        t = np.array([r[:5] for r in rows], dtype=np.int32)
+        steps = np.array([r[5] for r in rows], dtype=np.float32).view(np.int32)
+        plan.append((comps, np.ascontiguousarray(np.column_stack([t, steps]))))
+
+    for c, ((ph, pw), bs) in enumerate(zip(shapes, bands)):
+        for oy, ox, h, w, _ in bs:
+            if min(oy, ox, h, w) < 0 or oy + h > ph or ox + w > pw:
+                raise ValueError(f"band {(oy, ox, h, w)} lies outside plane {c} ({ph}x{pw})")
+        area = sum(h * w for _, _, h, w, _ in bs)
+        if area != ph * pw:
+            raise ValueError(f"the bands of plane {c} cover {area} samples of its {ph * pw}")
+        live = [b for b in bs if b[2] and b[3]]
+        if len(live) > QUANT_MAX_BANDS:
+            raise ValueError(f"plane {c} has {len(live)} bands, a launch takes "
+                             f"{QUANT_MAX_BANDS}")
+        if not live:
+            continue
+        if comps and (len(comps) == QUANT_MAX_COMPS or len(rows) + len(live) > QUANT_MAX_BANDS):
+            close()
+            comps, rows = [], []
+        rows += [(len(comps), *b) for b in live]
+        comps.append(c)
+    if comps:
+        close()
+    if len(_QUANT_PLANS) >= 256:
+        _QUANT_PLANS.clear()
+    _QUANT_PLANS[key] = plan
+    return plan
+
+
+def _empty_aligned_as(plane: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised 4-byte ``dtype`` tensor of plane's shape whose
+    address equals plane's modulo 16, so K-l and K-m move both in 16-byte
+    quads."""
+    if plane.data_ptr() % 16 == 0:  # the allocator's blocks are aligned
+        return torch.empty(plane.shape, dtype=dtype, device=plane.device)
+    n = plane.numel()
+    buf = torch.empty(n + 3, dtype=dtype, device=plane.device)
+    k = ((plane.data_ptr() - buf.data_ptr()) >> 2) & 3
+    return buf[k:k + n].view(plane.shape)
+
+
+def _band_quant(name: str, plain, planes: list[torch.Tensor], bands: list[list[tuple]],
+                src: torch.dtype, dst: torch.dtype) -> list[torch.Tensor]:
+    """K-l or K-m over a tile's planes: one launch a group of
+    quant_plan, or the plain version plane by plane on the CPU."""
+    dev = _check_planes(planes, False, src)
+    plan = quant_plan([tuple(p.shape) for p in planes], bands)
     if dev.type == "cpu":
-        return quant_deadzone_plain(plane, bands)
-    out = torch.empty(plane.shape, dtype=torch.int32, device=dev)
-    rects, steps = _band_table(bands, dev)
-    kernels.KERNELS["quant_deadzone"].call(
-        plane.data_ptr(), out.data_ptr(), plane.shape[0], plane.shape[1],
-        rects.data_ptr(), steps.data_ptr(), len(bands), kernels.stream_ptr(dev))
-    return out
+        return [plain(p, b) for p, b in zip(planes, bands)]
+    outs = [_empty_aligned_as(p, dst) for p in planes]  # the bands write every sample
+    k, stream = kernels.KERNELS[name], kernels.stream_ptr(dev)
+    for comps, table in plan:
+        ptrs = np.array([(planes[c].data_ptr(), outs[c].data_ptr(), planes[c].shape[1])
+                         for c in comps], dtype=np.int64)
+        k.call(ptrs.ctypes.data, table.ctypes.data, len(comps), len(table), stream)
+    return outs
+
+
+def quant_deadzone(planes: list[torch.Tensor], bands: list[list[tuple]]) -> list[torch.Tensor]:
+    """Dead-zone quantization of a tile's packed float32 planes: int32
+    sign(v) * floor(|v| / step) with each band's float32 step; ``bands[c]``
+    lists plane c's (oy, ox, h, w, step) and must tile it."""
+    return _band_quant("quant_deadzone", quant_deadzone_plain, planes, bands, torch.float32,
+                       torch.int32)
 
 
 def quant_deadzone_plain(plane, bands):
@@ -679,20 +745,13 @@ def quant_deadzone_plain(plane, bands):
     return out
 
 
-def dequant_midbin(plane: torch.Tensor, bands: list[tuple]) -> torch.Tensor:
-    """Mid-bin dequantization of a packed int32 plane: float32
+def dequant_midbin(planes: list[torch.Tensor], bands: list[list[tuple]]) -> list[torch.Tensor]:
+    """Mid-bin dequantization of a tile's packed int32 planes: float32
     sign(q) * (|q| + 0.5) * step, 0 for q = 0, with each band's float32
-    step."""
-    _check_plane(plane, "plane")
-    dev = plane.device
-    if dev.type == "cpu":
-        return dequant_midbin_plain(plane, bands)
-    out = torch.empty(plane.shape, dtype=torch.float32, device=dev)
-    rects, steps = _band_table(bands, dev)
-    kernels.KERNELS["dequant_midbin"].call(
-        plane.data_ptr(), out.data_ptr(), plane.shape[0], plane.shape[1],
-        rects.data_ptr(), steps.data_ptr(), len(bands), kernels.stream_ptr(dev))
-    return out
+    step; ``bands[c]`` lists plane c's (oy, ox, h, w, step) and must tile
+    it."""
+    return _band_quant("dequant_midbin", dequant_midbin_plain, planes, bands, torch.int32,
+                       torch.float32)
 
 
 def dequant_midbin_plain(plane, bands):

@@ -200,7 +200,7 @@ def encode_cleanup(coeffs: np.ndarray, h: int, w: int) -> bytes:
     vlc = VlcEnc()
     ms = MsEnc()
 
-    mag = np.abs(coeffs[:h, :w]).astype(np.int64)
+    mag = np.abs(coeffs[:h, :w].astype(np.int64))  # |-2^31| is 2^31
     sgn = (coeffs[:h, :w] < 0).astype(np.int64)
     nqw = (w + 1) // 2  # quads per row
 

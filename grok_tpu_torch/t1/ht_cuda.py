@@ -21,15 +21,10 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..core.errors import UnsupportedFeatureError
 from ..core.timing import StageClock
 from . import ht
 from .ebcot import T1EncodeResult
 from .ebcot_cuda import _check
-
-# magnitudes at or above this are refused (the reference's device range,
-# ht_jax.DEVICE_MAG_LIMIT): MagSgn fields stay within 25 bits
-ENC_MAG_LIMIT = 1 << 24
 
 # int32 table layout of csrc/ht_enc.cu and csrc/ht_dec.cu
 _T_ENC, _T_DEC, _T_MEL_EXP, _T_U = 0, 4096, 6144, 6157
@@ -264,9 +259,6 @@ def encode_cblks(coeffs: torch.Tensor, heights, widths,
     dev = coeffs.device
     coeffs = coeffs.to(torch.int32).contiguous()
     mx = largest_magnitude(coeffs)
-    if mx >= ENC_MAG_LIMIT:
-        raise UnsupportedFeatureError(
-            f"HT encode of magnitudes >= 2**24 (largest {mx})")
     mmax = max((2 * mx - 1).bit_length(), 1)
     out = ht_cleanup_enc(coeffs, _int32(heights, dev), _int32(widths, dev),
                          ht_tables(dev), mmax, want_energy=want_dist)

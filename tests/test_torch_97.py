@@ -120,7 +120,7 @@ def test_quantization_equals_host_path():
     packed = (rng.standard_normal((h, w)) * 90).astype(np.float32)
     packed[0, 0] = 0.0
     bands = _bands(h, w)
-    q = tr.quant_deadzone(torch.from_numpy(packed), bands)
+    q, = tr.quant_deadzone([torch.from_numpy(packed)], [bands])
     assert q.dtype == torch.int32
     np.testing.assert_array_equal(q.numpy(), native_ops.quant_bands(packed, bands))
     want = np.zeros((h, w), dtype=np.int32)
@@ -128,7 +128,7 @@ def test_quantization_equals_host_path():
         v = packed[oy:oy + bh, ox:ox + bw]
         want[oy:oy + bh, ox:ox + bw] = np.sign(v) * np.floor(np.abs(v) / step)
     np.testing.assert_array_equal(q.numpy(), want)
-    deq = tr.dequant_midbin(q, bands)
+    deq, = tr.dequant_midbin([q], [bands])
     _assert_same_floats(deq, native_ops.dequant_bands(q.numpy(), bands))
 
 

@@ -48,6 +48,22 @@ def test_reference_ht_stream_has_the_pinned_digest(h, w):
     assert hashlib.sha256(out).hexdigest() == digest
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.WIDE_HT_CASES))
+def test_reference_wide_ht_streams_have_the_pinned_digests(case):
+    """slice_ht_wide's 28-bit HT streams (coefficients from 2^24 up); the
+    5/3 stream decodes to the input."""
+    arr = chip_smoke.wide_image(64, 64, 3, chip_smoke.WIDE_BITS)
+    assert arr.max() >= 1 << (chip_smoke.WIDE_BITS - 1)
+    kw = chip_smoke.WIDE_HT_CASES[case]
+    out = grok_tpu.compress(grok_tpu.Image.from_array(arr, prec=chip_smoke.WIDE_BITS),
+                            grok_tpu.CompressParams(**kw))
+    key = f"ht {case} 64x64x3"
+    assert (len(out), hashlib.sha256(out).hexdigest()) == chip_smoke.REF_SHA256[key]
+    if not kw.get("irreversible"):
+        for c, p in enumerate(grok_tpu.decompress(out).components):
+            np.testing.assert_array_equal(p.data, arr[:, :, c])
+
+
 def test_chip_smoke_imports_only_numpy_at_module_level():
     src = Path(chip_smoke.__file__).read_text()
     top = [ln for ln in src.splitlines() if ln.startswith(("import ", "from "))]

@@ -284,7 +284,7 @@ def _ht_stress_cases():
     2^53, runs of 0xFF in MagSgn, VLC bytes stuffed after bytes above 0x8F,
     long MEL runs, all-zero codeblocks among full ones, and a batch larger
     than one wave of the card."""
-    from test_torch_ke_host import vlc_stress
+    from test_torch_ke_host import vlc_stress, wide_batch
 
     rng = np.random.default_rng(40)
     top = (1 << 24) - 1
@@ -307,6 +307,7 @@ def _ht_stress_cases():
         "1024x4": _ht_batch(43, 3, 1024, 4, 500, 0.7),
         "2x1024 ragged": _ht_batch(44, 6, 2, 1024, 60, 0.8, ragged=True),
         "25-bit MagSgn": (as32(big), full(4, 64), full(4, 64)),
+        "32-bit MagSgn": tuple(wide_batch(46, 24, 64, 64)),
         "MagSgn 0xFF": (as32(ff), full(8, 64), full(8, 64)),
         "VLC 0x8F/0x7F": (vlc_stress(16, 64, 64), full(16, 64), full(16, 64)),
         "MEL runs": (as32(sparse), full(6, 64), full(6, 64)),
@@ -316,20 +317,20 @@ def _ht_stress_cases():
 
 
 @pytest.mark.parametrize("case", ["4x1024", "1024x4", "2x1024 ragged", "25-bit MagSgn",
-                                  "MagSgn 0xFF", "VLC 0x8F/0x7F", "MEL runs",
+                                  "32-bit MagSgn", "MagSgn 0xFF", "VLC 0x8F/0x7F", "MEL runs",
                                   "zero among full", "more than a wave"])
 def test_ht_encode_kernel_equals_plain_stress(cuda, case):
     """K-e's segments, lengths and energies equal the plain version's, and
     K-f gives the samples back."""
     c, h, w = _ht_stress_cases()[case]
     bh, bw = c.shape[1:]
-    mmax = max((2 * int(c.abs().max()) - 1).bit_length(), 1)
+    mmax = max((2 * hc.largest_magnitude(c) - 1).bit_length(), 1)
     c_d, h_d, w_d, tab = c.to(cuda), h.to(cuda), w.to(cuda), hc.ht_tables(cuda)
     buf, lens, energy = hc.ht_cleanup_enc(c_d, h_d, w_d, tab, mmax, want_energy=True)
     rbuf, rlen = hc.ht_cleanup_enc(c, h, w, hc.ht_tables(torch.device("cpu")), mmax)
     assert torch.equal(lens.cpu(), rlen) and torch.equal(buf.cpu(), rbuf)
     assert torch.equal(energy.cpu(), hc.block_energy_plain(c, h, w))
-    if case == "25-bit MagSgn":
+    if case in ("25-bit MagSgn", "32-bit MagSgn"):
         assert float(energy.max()) > 2.0 ** 53
     # the kernel's stats (MEL events, stuffed MagSgn and VLC bytes) through
     # its C entry, with buffers of its own
@@ -966,19 +967,78 @@ def test_dwt97_inv_kernel_rounds_each_product_and_sum(cuda):
     assert _same_bits(got, ref)
 
 
-@pytest.mark.parametrize("h,w", [(19, 22), (2160, 3840)])
-def test_quant_kernels_equal_plain(cuda, h, w):
+def _quant_tile(h, w, nc, levels, origin=(0, 0)):
+    """(plane shapes, band tables) of a 9/7 tile of an h x w x nc image at
+    origin (x0, y0), as tests/test_torch_quant_host.py makes them."""
+    from grok_tpu_torch.codestream.compress import build_siz, build_tcp
+    from grok_tpu_torch.tile.tile_processor import TileProcessor
+
+    img = gt.Image.from_array(np.zeros((h, w, nc), dtype=np.uint8))
+    img.x0, img.y0, img.x1, img.y1 = origin[0], origin[1], origin[0] + w, origin[1] + h
+    img.finalize()
+    p = gt.CompressParams(num_resolutions=levels + 1, irreversible=True)
+    tp = TileProcessor(build_siz(img, p), build_tcp(img, p), 0, "cpu")
+    tp._apply_band_quant()
+    return [(g.rect.height, g.rect.width) for g in tp.geoms], tp.band_tables()
+
+
+@pytest.mark.parametrize("h,w,nc,levels,origin", [(19, 22, 1, 1, (0, 0)),
+                                                  (37, 53, 3, 3, (3, 5)),
+                                                  (45, 77, 4, 5, (2, 3)),
+                                                  (2160, 3840, 3, 5, (0, 0)),
+                                                  (2161, 3839, 3, 5, (1, 1))])
+def test_quant_kernels_equal_plain(cuda, h, w, nc, levels, origin):
+    """K-l and K-m over a tile's planes, one launch each, equal their plain
+    versions bit for bit."""
+    shapes, bands = _quant_tile(h, w, nc, levels, origin)
     rng = np.random.default_rng(h)
-    plane = torch.from_numpy((rng.standard_normal((h, w)) * 90).astype(np.float32))
-    bands = [(0, 0, h // 2, w // 2, 0.37), (0, w // 2, h // 2, w - w // 2, 1.9),
-             (h // 2, 0, h - h // 2, w // 3, 0.011), (h // 2, w // 3, h - h // 2, w - w // 3, 7.3)]
-    q = tr.quant_deadzone(plane.to(cuda), bands)
-    q_ref = tr.quant_deadzone_plain(plane, bands)
-    torch.cuda.synchronize()
-    assert torch.equal(q.cpu(), q_ref)
+    planes = [torch.from_numpy((rng.standard_normal(s) * 90).astype(np.float32))
+              for s in shapes]
+    before = (_launches("quant_deadzone"), _launches("dequant_midbin"))
+    q = tr.quant_deadzone([p.to(cuda) for p in planes], bands)
     d = tr.dequant_midbin(q, bands)
     torch.cuda.synchronize()
-    assert _same_bits(d, tr.dequant_midbin_plain(q_ref, bands))
+    assert (_launches("quant_deadzone"), _launches("dequant_midbin")) == (before[0] + 1,
+                                                                         before[1] + 1)
+    q_ref = [tr.quant_deadzone_plain(p, b) for p, b in zip(planes, bands)]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(q, q_ref))
+    assert all(_same_bits(a, tr.dequant_midbin_plain(b, bs))
+               for a, b, bs in zip(d, q_ref, bands))
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_quant_kernels_on_views_off_alignment(cuda, shift):
+    """Planes that are views of one buffer at any offset, as the decode's
+    staging planes are: the outputs take the inputs' alignment."""
+    shapes, bands = _quant_tile(45, 77, 3, 4, (1, 2))
+    n = [h * w for h, w in shapes]
+    rng = np.random.default_rng(shift)
+    flat = torch.from_numpy(rng.integers(-3000, 3000, size=sum(n) + 8).astype(np.int32))
+    flat = flat.to(cuda)
+    views = [flat[shift + sum(n[:c]):shift + sum(n[:c + 1])].view(s)
+             for c, s in enumerate(shapes)]
+    d = tr.dequant_midbin(views, bands)
+    q = tr.quant_deadzone(d, bands)
+    torch.cuda.synchronize()
+    for v, a, b, bs in zip(views, d, q, bands):
+        assert a.data_ptr() % 16 == v.data_ptr() % 16
+        assert _same_bits(a, tr.dequant_midbin_plain(v.cpu(), bs))
+        assert torch.equal(b.cpu(), tr.quant_deadzone_plain(a.cpu(), bs))
+
+
+def test_quant_kernels_past_one_launch(cuda):
+    """Ten components of five levels (16 bands each): seven to a launch
+    (its band limit), so two launches a direction."""
+    shapes, bands = _quant_tile(70, 131, 10, 5, (1, 0))
+    rng = np.random.default_rng(10)
+    planes = [torch.from_numpy((rng.standard_normal(s) * 90).astype(np.float32))
+              for s in shapes]
+    before = _launches("quant_deadzone")
+    q = tr.quant_deadzone([p.to(cuda) for p in planes], bands)
+    torch.cuda.synchronize()
+    assert _launches("quant_deadzone") == before + 2
+    assert all(torch.equal(a.cpu(), tr.quant_deadzone_plain(p, b))
+               for a, p, b in zip(q, planes, bands))
 
 
 @pytest.mark.parametrize("nc", [1, 3, 4])

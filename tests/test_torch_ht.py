@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from grok_tpu.t1 import ht, ht_jax, ht_jax_dec, native
-from grok_tpu_torch import UnsupportedFeatureError
 from grok_tpu_torch.t1 import ht as port_ht
 from grok_tpu_torch.t1 import ht_cuda
 
@@ -108,10 +107,17 @@ def test_encode_overflowing_its_capacity_raises():
 
 
 def test_encode_refuses_magnitudes_past_its_limit():
-    c = np.zeros((2, 8, 8), dtype=np.int64)
+    """The encoder's limit is the int32 range: magnitudes from 2^24 (where
+    it once refused) up to INT32_MIN's 2^31 are coded as the reference's
+    default coder (native/ht_coder.cpp) codes them, energies included."""
+    c = np.zeros((3, 8, 8), dtype=np.int64)
     c[1, 3, 3] = -(1 << 24)
-    with pytest.raises(UnsupportedFeatureError):
-        ht_cuda.encode_cblks(*_tensors(c, np.full(2, 8), np.full(2, 8)))
+    c[2, :4] = np.array([1 << 24, (1 << 30) - 1, 1 << 30, (1 << 31) - 1, -(1 << 31), -5, 0, 7])
+    h = w = np.full(3, 8)
+    res, segs = _encode(c, h, w)
+    ref = native.ht_encode_cblks(c.astype(np.int32), h, w, np.zeros(3))
+    assert segs == [bytes(ref.data[i, :ref.lengths[i]]) for i in range(3)]
+    np.testing.assert_array_equal(res.pass_dist.numpy()[:, 0], ref.pass_dist.reshape(-1))
 
 
 def _segments(c, h, w):

@@ -71,7 +71,7 @@ def _host_encode(lib, c, h, w, warps=None):
     """(segments [n, cap], lengths [n] int64, energies [n], stats [n, 3])
     of a launch laid out as the wrapper lays it out."""
     n, bh, bw = c.shape
-    mmax = max((2 * int(c.abs().max()) - 1).bit_length(), 1)
+    mmax = max((2 * hc.largest_magnitude(c) - 1).bit_length(), 1)
     cap, aux = hc.segment_capacity(bh, bw, mmax)
     out = torch.full((n + 1, cap), 0xCC, dtype=torch.uint8)
     out[n] = 0
@@ -112,6 +112,21 @@ def vlc_stress(n, bh, bw, seed=132):
     return torch.from_numpy(c.astype(np.int32))
 
 
+def wide_batch(seed, n=4, bh=16, bw=64):
+    """Magnitudes from 2^24 to 2^31 - 1 (log-uniform), the named ones 2^24,
+    2^30 - 1, 2^30, 2^31 - 1 and INT32_MIN, and small values beside wide
+    ones: exponents up to 32, MagSgn fields of up to 32 bits."""
+    rng = np.random.default_rng(seed)
+    mag = np.minimum(np.exp2(rng.uniform(24, 31, size=(n, bh, bw))), (1 << 31) - 1)
+    c = np.where(rng.random((n, bh, bw)) < 0.5, -1, 1) * mag.astype(np.int64)
+    c *= rng.random((n, bh, bw)) < 0.8
+    named = [1 << 24, (1 << 30) - 1, 1 << 30, (1 << 31) - 1]
+    c[1] = rng.choice(named + [-v for v in named] + [-(1 << 31)], size=(bh, bw))
+    c[2, :, ::2] = rng.integers(-3, 4, size=(bh, (bw + 1) // 2))
+    c[3, 0, 0] = -(1 << 31)
+    return [torch.from_numpy(a.astype(np.int32)) for a in (c, np.full(n, bh), np.full(n, bw))]
+
+
 def _cases():
     top = (1 << 24) - 1
     big = _batch(21, 3, 4, 64, top, 1.0)
@@ -138,6 +153,7 @@ def _cases():
         "odd 5x67, zero blocks among full": (*_batch(13, 5, 5, 67, 40, 0.6, zero=(1, 3)), 2),
         "tall 70x4": (*_batch(14, 2, 70, 4, 1000, 0.9), 1),
         "25-bit MagSgn fields": (*big, 1),
+        "32-bit MagSgn fields: 2^24 to 2^31 - 1 and INT32_MIN": (*wide_batch(23), 2),
         "MagSgn 0xFF": (torch.from_numpy(ff), full(4, 6), full(4, 8), 2),
         "MEL runs": (torch.from_numpy(sparse), full(2, 64), full(2, 64), 1),
         "VLC 0x8F/0x7F": (vlc_stress(1, 8, 64), full(1, 8), full(1, 64), 1),
@@ -152,12 +168,12 @@ def _cases():
 def test_device_code_equals_plain(host_lib, case):
     c, h, w, warps = _cases()[case]
     buf, lengths, energy, stats = _host_encode(host_lib, c, h, w, warps)
-    mmax = max((2 * int(c.abs().max()) - 1).bit_length(), 1)
+    mmax = max((2 * hc.largest_magnitude(c) - 1).bit_length(), 1)
     rbuf, rlen = hc.ht_cleanup_enc_plain(c, h, w, hc.segment_capacity(*c.shape[1:], mmax)[0])
     assert torch.equal(lengths, rlen)
     assert torch.equal(buf, rbuf)
     assert torch.equal(energy, hc.block_energy_plain(c, h, w))
-    if case == "25-bit MagSgn fields":  # sums past 2^53: only the reference's order agrees
+    if case.endswith("MagSgn fields"):  # sums past 2^53: only the reference's order agrees
         assert float(energy[0]) != float(int((c[0].to(torch.int64) ** 2).sum()))
     if case == "MagSgn 0xFF":
         assert int(stats[:, 1].sum()) > 0
