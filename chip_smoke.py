@@ -49,19 +49,24 @@ line):
               lossy97 batch (K-p's plain on the card, K-q's on the CPU),
               with K-p's passes summed by the exact reduction and by the
               ordered chain, the record-row bytes it reads, its launch and
-              ptxas; K-g, K-k and K-n as inverse_transform and
-              forward_transform call them (dwt53_inv_levels,
-              dwt97_fwd_levels, dwt97_inv_levels: 15 launches an image,
-              warm and cold) and by their in-place one-level entries, each
-              level of a component alone (C entry), a 1024x1024 tile's five
-              levels, their launches and ptxas, and the stages they run in
-              (the 5/3 decode's inverse, K-g and K-h; the 9/7 encode's
-              transform, K-j, K-k and K-l; the 9/7 decode's inverse, K-m,
-              K-n and K-o: host enqueue, wall and device ms); K-r
-              and K-s (the Part-2 MCT with M3 and back) and K-t (a packed
-              plane shifted up and down) on the whole image, plain on the
-              card; K-u, K-v and K-b/K-g/K-k/K-n's horizontal halves on the
-              level-0 sub-block of a shard of the 4096x4096 strip, K-w on
+              ptxas; K-b, K-g, K-k and K-n as forward_transform and
+              inverse_transform call them (dwt53_fwd_levels,
+              dwt53_inv_levels, dwt97_fwd_levels, dwt97_inv_levels: 15
+              launches an image, warm and cold) and by their in-place
+              one-level entries, each level of a component alone (C
+              entry), a 1024x1024 tile's five levels, their launches and
+              ptxas, and the stages they run in (the 5/3 encode's
+              transform, K-a and K-b; the 5/3 decode's inverse, K-g and
+              K-h; the 9/7 encode's transform, K-j, K-k and K-l; the 9/7
+              decode's inverse, K-m, K-n and K-o: host enqueue, wall and
+              device ms); K-r and K-s (the Part-2 MCT with M3 and back,
+              warm and cold, with a call's host enqueue and K-r's launch)
+              and K-t (a packed plane shifted up and down) on the whole
+              image, plain on the card, and K-r and K-s with M4, with 127
+              components and on views one sample off 16-byte alignment
+              (mct_checks: launches and allocations a call); K-u, K-v
+              and K-b/K-g/K-k/K-n's horizontal halves on the level-0
+              sub-block of a shard of the 4096x4096 strip, K-w on
               the 4K tile batch, plain on the card; all compared exactly,
               the float outputs on their bits. Kernel times (KernelTimer):
               one event pair a launch, the median, least and largest of
@@ -538,6 +543,55 @@ def quant_odd_checks(torch, gt, tr, kernels, dev):
     return out
 
 
+def mct_checks(torch, tr, kernels, dev, planes):
+    """K-r and K-s beyond the M3 row, each against its plain version bit for
+    bit, with the launches and the allocations of a call once its matrix is
+    on the card (the outputs' only): M4 on the 4K planes (the first twice),
+    127 components of 16x16, and M3 on views of one buffer, the first one
+    sample past 16-byte alignment, 4,096 samples a plane (every plane at
+    that alignment: K-r's 16-byte path, quads shifted) and 4,097 (the
+    others at other alignments: sample by sample). The plain versions of
+    the small cases run on the CPU."""
+    rng = np.random.default_rng(23)
+    cases = {f"M4, 4 x {H}x{W}": (planes + planes[:1], np.asarray(M4, dtype=np.float32))}
+    big = [torch.from_numpy(rng.integers(0, 256, (16, 16)).astype(np.int32)).to(dev)
+           for _ in range(127)]
+    cases["127 x 16x16"] = (big, (np.eye(127) + rng.uniform(-0.02, 0.02, (127, 127)))
+                            .astype(np.float32))
+    for size in (4096, 4097):
+        flat = torch.from_numpy(rng.integers(0, 256, 3 * size + 8).astype(np.int32)).to(dev)
+        base = (1 - (flat.data_ptr() >> 2)) & 3
+        cases[f"M3 on views of 1x{size}, one sample past 16 B"] = (
+            [flat[base + k * size:base + (k + 1) * size].view(1, size) for k in range(3)],
+            np.asarray(M3, dtype=np.float32))
+    out = {}
+    names = ("dc_mct_fwd", "mct_inv_round_clip")
+    for label, (ps, m) in cases.items():
+        n = len(ps)
+        inv = np.linalg.inv(m.astype(np.float64)).astype(np.float32)
+        dcs, offs, rng8 = [128] * n, [128.0] * n, [(0, 255)] * n
+        tr.mct_inv_round_clip(tr.dc_mct_fwd(ps, dcs, m), inv, offs, rng8)  # caches the matrices
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        n0 = [kernels.KERNELS[k].launches for k in names]
+        fwd = tr.dc_mct_fwd(ps, dcs, m)
+        back = tr.mct_inv_round_clip(fwd, inv, offs, rng8)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - allocs
+        launches = [kernels.KERNELS[k].launches - c for k, c in zip(names, n0)]
+        on = ps if ps[0].numel() > 1 << 20 else [p.cpu() for p in ps]
+        f_on = fwd if on is ps else [f.cpu() for f in fwd]
+        equal = all(torch.equal(a.view(torch.int32).to(b.device), b.view(torch.int32))
+                    for a, b in zip(fwd, tr.dc_mct_fwd_plain(on, dcs, m))) and all(
+            torch.equal(a.to(b.device), b)
+            for a, b in zip(back, tr.mct_inv_round_clip_plain(f_on, inv, offs, rng8)))
+        aligned = all(f.data_ptr() % 16 == ps[0].data_ptr() % 16 for f in fwd)
+        out[label] = dict(ok=equal and aligned and launches == [1, 1] and allocs == 2 * n,
+                          equal=equal, launches_a_call=launches, allocations_a_call=allocs,
+                          outputs_aligned_as_input=aligned)
+    return out
+
+
 def golden_md5(planes) -> str:
     """The corpus's digest recipe (tests/conftest.py golden_md5): md5 over
     each component plane as contiguous int32 bytes + str(shape), in
@@ -774,8 +828,8 @@ def ptxas(stem):
 
 
 def level_figures(torch, tr, kernels, timer, name, occupancy, tile, plane, lv4k, run_levels):
-    """The figures of a wavelet kernel that runs one launch a level (K-g,
-    K-k, K-n, kernel ``name`` of csrc/<stem>.cu): its launch (threads,
+    """The figures of a wavelet kernel that runs one launch a level (K-b,
+    K-g, K-k, K-n, kernel ``name`` of csrc/<stem>.cu): its launch (threads,
     shared bytes and blocks resident an SM from the C entry ``occupancy``,
     the waves of each 4K level at ``tile`` (rows, columns) a block), each
     level ``lv4k`` of ``plane`` alone by the C entry, a 1024x1024 tile's
@@ -787,7 +841,7 @@ def level_figures(torch, tr, kernels, timer, name, occupancy, tile, plane, lv4k,
     sms = torch.cuda.get_device_properties(plane.device).multi_processor_count
     out = torch.empty_like(plane)
     launch = tr.level_launcher(name, plane.device)
-    fwd = name == "dwt97_fwd_level"  # the forward's LL quadrant goes to an output
+    fwd = name in ("dwt53_fwd_level", "dwt97_fwd_level")  # a forward's LL quadrant: an output
 
     def level_c(lv):
         return lambda: launch(plane, out if fwd else plane, out, *lv)
@@ -1374,7 +1428,9 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: tr.dc_rct_fwd_plain(planes, dcs, True)),
         bytes=6 * 4 * W * H, ops=8 * W * H, shape=f"3 x {H}x{W} int32")
 
-    # K-b on the whole image: all levels of all components
+    # K-b as forward_transform calls it: a component's levels finest first,
+    # one launch each, into a new plane (dwt53_fwd_levels); the in-place
+    # one-level entry (a launch and a copy a level) checked too
     levels = []
     for g in tp.geoms:
         cur = g.rect
@@ -1386,18 +1442,35 @@ def main() -> int:
         for c, p in enumerate(ps):
             for (h, w, py, px) in levels[5 * c:5 * c + 5]:
                 fn(p, h, w, py, px)
-    kern = [p.clone() for p in got]
+    fwd53_lv = [levels[5 * c:5 * c + 5] for c in range(NC)]
+
+    def fwd53(ps):
+        return [tr.dwt53_fwd_levels(p, lv) for p, lv in zip(ps, fwd53_lv)]
+    kern = fwd53(got)
     plain = [p.clone() for p in got]
-    dwt_all(tr.dwt53_fwd_level, kern)
     dwt_all(tr.dwt53_fwd_level_plain, plain)
-    err = max(int((a - b).abs().max()) for a, b in zip(kern, plain))
+    in_place = [p.clone() for p in got]
+    dwt_all(tr.dwt53_fwd_level, in_place)
+    err = max(int((a - b).abs().max()) for a, b in zip(kern + in_place, plain + plain))
     packed_ref = [p.clone() for p in plain]
     lvl_bytes = sum(8 * h * w for (h, w, _, _) in levels)
+    kb_fig = dict(in_place_entry_equal=all(torch.equal(a, b) for a, b in zip(in_place, plain)),
+                  **level_figures(torch, tr, kernels, timer, "dwt53_fwd_level",
+                                  "dwt53_fwd_occupancy", (60, 64), got[0], fwd53_lv[0],
+                                  tr.dwt53_fwd_levels))
+    rects53 = [g.rect for g in tp.geoms]
+
+    def forward53_chain():  # the 5/3 encode's transform stage: K-a, K-b
+        tr.forward_transform(planes, rects53, [5] * NC, dcs, True)
+    kb_fig["transform_stage"] = chain_times(torch, forward53_chain)
+    scratch = [p.clone() for p in got]
     stats["dwt53_fwd_level"] = dict(
-        max_abs_err=err, **timer.row(lambda: dwt_all(tr.dwt53_fwd_level, kern), bytes_=lvl_bytes),
-        plain_ms=cuda_ms(torch, lambda: dwt_all(tr.dwt53_fwd_level_plain, plain)),
+        max_abs_err=err, **timer.row(lambda: fwd53(got), cold=True, bytes_=lvl_bytes),
+        plain_ms=cuda_ms(torch, lambda: dwt_all(tr.dwt53_fwd_level_plain, scratch)),
         bytes=lvl_bytes, ops=sum(9 * h * w for (h, w, _, _) in levels),
-        shape="5 levels x 3 comps from 2160x3840 (ms per image)")
+        shape="5 levels x 3 comps from 2160x3840 int32 (ms per image, dwt53_fwd_levels: "
+              "15 launches)", **kb_fig)
+    del kern, plain, in_place, scratch
     coeffs = tr.forward_transform(planes, [g.rect for g in tp.geoms], [5] * NC, dcs, True)
     if any(not torch.equal(a, b) for a, b in zip(coeffs, packed_ref)):
         raise AssertionError("forward_transform differs from the level-by-level check")
@@ -1707,7 +1780,6 @@ def main() -> int:
                   **level_figures(torch, tr, kernels, timer, "dwt53_inv_level",
                                   "dwt53_inv_occupancy", (60, 64), coeffs[0], inv_lv[0],
                                   tr.dwt53_inv_levels))
-    rects53 = [g.rect for g in tp.geoms]
 
     def inverse53_chain():  # the 5/3 decode's inverse stage: K-g, K-h
         tr.inverse_transform(coeffs, rects53, [5] * NC, [8] * NC, [False] * NC, True)
@@ -1945,11 +2017,18 @@ def main() -> int:
     r_k = tr.dc_mct_fwd(planes, dcs, m3)
     m3_t = torch.from_numpy(m3).to(dev)
     flat_t = torch.stack([p - 128 for p in planes]).reshape(NC, -1).float()
+    mct_odd = mct_checks(torch, tr, kernels, dev, planes)
+    mct_ok = all(c["ok"] for c in mct_odd.values())
+    threads_r, regs_r, blocks_r = c_ints(kernels, "mct_custom.cu", "dc_mct_fwd_occupancy", NC)
     stats["dc_mct_fwd"] = dict(
-        max_abs_err=err_of(r_k, tr.dc_mct_fwd_plain(planes, dcs, m3)),
-        **timer.row(lambda: tr.dc_mct_fwd(planes, dcs, m3), bytes_=6 * 4 * npx),
+        max_abs_err=max(err_of(r_k, tr.dc_mct_fwd_plain(planes, dcs, m3)),
+                        0.0 if mct_ok else 1e-30),
+        **timer.row(lambda: tr.dc_mct_fwd(planes, dcs, m3), cold=True, bytes_=6 * 4 * npx),
         plain_ms=cuda_ms(torch, lambda: tr.dc_mct_fwd_plain(planes, dcs, m3), reps=1),
         bytes=6 * 4 * npx, ops=(2 * NC * NC + NC) * npx, op_rate=FP32_OPS_PER_S,
+        launch=dict(threads_a_block=threads_r, registers=regs_r, blocks_per_sm=blocks_r),
+        call=chain_times(torch, lambda: tr.dc_mct_fwd(planes, dcs, m3)), checks=mct_odd,
+        ptxas=ptxas("mct_custom"),
         torch_matmul_ms=timer.warm(lambda: torch.matmul(m3_t, flat_t)),
         torch_matmul_note="torch.matmul of the matrix and the DC-shifted planes stacked as "
                           "float32: not the same function (it rounds differently, with no "
@@ -1961,8 +2040,11 @@ def main() -> int:
     worst = max(int((o.cpu() - torch.from_numpy(np.ascontiguousarray(arr[:, :, c]))).abs().max())
                 for c, o in enumerate(s_k))
     stats["mct_inv_round_clip"] = dict(
-        max_abs_err=err_of(s_k, tr.mct_inv_round_clip_plain(r_k, m3_inv, offs, rng8)),
-        **timer.row(lambda: tr.mct_inv_round_clip(r_k, m3_inv, offs, rng8), bytes_=6 * 4 * npx),
+        max_abs_err=max(err_of(s_k, tr.mct_inv_round_clip_plain(r_k, m3_inv, offs, rng8)),
+                        0.0 if mct_ok else 1e-30),
+        **timer.row(lambda: tr.mct_inv_round_clip(r_k, m3_inv, offs, rng8), cold=True,
+                    bytes_=6 * 4 * npx),
+        call=chain_times(torch, lambda: tr.mct_inv_round_clip(r_k, m3_inv, offs, rng8)),
         plain_ms=cuda_ms(torch, lambda: tr.mct_inv_round_clip_plain(r_k, m3_inv, offs, rng8),
                          reps=1),
         bytes=6 * 4 * npx, ops=(2 * NC * NC + 2 * NC) * npx, op_rate=FP32_OPS_PER_S,

@@ -77,7 +77,7 @@ KERNELS: dict[str, Kernel] = {
                (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P)),
         Kernel("dwt53_fwd_level", "dwt53.cu",
                "grok_tpu/ops/jax_pipeline.py:93 (K2-fwd: dwt.forward / fwd53_axis)",
-               (_P, _P, _I32, _I32, _I32, _I32, _I32, _P)),
+               (_P, _I64, _P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _P)),
         Kernel("ebcot_symbols", "ebcot_symbols.cu",
                "grok_tpu/t1/ebcot_pallas.py:70 (K1: _build_kernel_wide)",
                (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _P)),
@@ -132,11 +132,11 @@ KERNELS: dict[str, Kernel] = {
         Kernel("dc_mct_fwd", "mct_custom.cu",
                "grok_tpu/ops/jax_pipeline.py:70-79 (K2-fwd Part-2: DC shift + the "
                "custom MCT, ops/mct.py:83 custom_mct_forward)",
-               (_P,) * 5 + (_I64, _I32, _P), FLOAT_FLAGS),
+               (_P,) * 3 + (_I64, _I32, _P), FLOAT_FLAGS),
         Kernel("mct_inv_round_clip", "mct_custom.cu",
                "grok_tpu/ops/jax_pipeline.py:192-197, :206-217 (K2-inv Part-2: the "
                "custom inverse MCT, offsets, round, clip)",
-               (_P,) * 7 + (_I64, _I32, _P), FLOAT_FLAGS),
+               (_P,) * 5 + (_I64, _I32, _P), FLOAT_FLAGS),
         Kernel("roi_up", "roi.cu",
                "grok_tpu/ops/jax_pipeline.py:103-108 (K2-fwd: ROI maxshift upshift)",
                (_P, _I64, _I32, _P)),

@@ -18,10 +18,11 @@ wavelet runs (grok_tpu_torch/parallel/mesh.py):
   (csrc/dwt53.cu), K-g ``dwt53_inv_level`` (csrc/dwt53_inv.cu) and K-h
   ``rct_inv_dc_clip`` (csrc/rct_inv.cu), all int32 with arithmetic right
   shifts;
-- the wavelet levels of K-g, K-k and K-n run one launch a level out of
-  place, through ``dwt53_inv_levels``, ``dwt97_fwd_levels`` and
-  ``dwt97_inv_levels`` (``fwd_ping_pong``, ``inv_ping_pong``); K-l and K-m
-  one launch a tile over its components (``quant_plan``);
+- the wavelet levels of K-b, K-g, K-k and K-n run one launch a level out
+  of place, through ``dwt53_fwd_levels``, ``dwt53_inv_levels``,
+  ``dwt97_fwd_levels`` and ``dwt97_inv_levels`` (``fwd_ping_pong``,
+  ``inv_ping_pong``); K-l and K-m one launch a tile over its components
+  (``quant_plan``);
 - irreversible: K-j ``dc_ict_fwd`` (csrc/dc_ict.cu), K-k
   ``dwt97_fwd_level`` and K-n ``dwt97_inv_level`` (csrc/dwt97.cu), K-l
   ``quant_deadzone`` and K-m ``dequant_midbin`` (csrc/quant97.cu) and K-o
@@ -34,7 +35,10 @@ wavelet runs (grok_tpu_torch/parallel/mesh.py):
 - the Part-2 MCT: K-r ``dc_mct_fwd`` and K-s ``mct_inv_round_clip``
   (csrc/mct_custom.cu), float32 fused multiply-add chains in k order, as
   numpy's float32 matmul of the host path computes them (explicit
-  __fmaf_rn; the plain versions round each fused step once, from float64);
+  __fmaf_rn; the plain versions round each fused step once, from float64),
+  one launch a call with the planes' addresses and the per-component
+  constants by value in the kernel's parameters and the matrix on the card
+  once per distinct matrix (``_mct_matrix``);
 - the ROI maxshift: K-t ``roi_up`` and ``roi_down`` (csrc/roi.cu), int32.
 
 A wrapper takes the plain version only for CPU tensors; CUDA tensors
@@ -112,22 +116,19 @@ def dc_rct_fwd_plain(planes, dcs, rct):
 def dwt53_fwd_level(plane: torch.Tensor, h: int, w: int, py: int, px: int) -> None:
     """One forward 5/3 level, in place: the top-left h x w of ``plane``
     becomes [[LL, HL], [LH, HH]]; py/px are the level rect's origin
-    parities (y0 & 1, x0 & 1)."""
-    _check_plane(plane, "plane")
-    if h > plane.shape[0] or w > plane.shape[1]:
-        raise ValueError("level region exceeds the plane")
-    if h == 0 or w == 0:
-        return
-    dev = plane.device
-    if dev.type == "cpu":
-        dwt53_fwd_level_plain(plane, h, w, py, px)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"dwt53_fwd_level: unsupported device {dev}")
-    tmp = torch.empty(h * w, dtype=torch.int32, device=dev)
-    kernels.KERNELS["dwt53_fwd_level"].call(
-        plane.data_ptr(), tmp.data_ptr(), plane.stride(0), h, w, py, px,
-        kernels.stream_ptr(dev))
+    parities (y0 & 1, x0 & 1) (on the card K-b writes a scratch region,
+    copied back)."""
+    _level_in_place("dwt53_fwd_level", dwt53_fwd_level_plain, torch.int32, True, plane, h, w,
+                    py, px)
+
+
+def dwt53_fwd_levels(plane: torch.Tensor, levels) -> torch.Tensor:
+    """The forward 5/3 of ``levels`` (h, w, py, px), finest first, on an
+    int32 plane: the tensor that holds the result, the plane itself on the
+    CPU (in place), a new one on the card (one K-b launch a level, the plane
+    left as it was)."""
+    return _run_levels("dwt53_fwd_level", dwt53_fwd_level_plain, fwd_ping_pong, torch.int32,
+                       plane, levels)
 
 
 def _fwd53_axis(x: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
@@ -235,14 +236,12 @@ def forward_transform(planes: list[torch.Tensor], rects: list[Rect], num_levels:
         if custom is not None:
             raise ValueError("the Part-2 MCT takes the irreversible transform")
         out = dc_rct_fwd(planes, dcs, mct)
-        for plane, rect, nl in zip(out, rects, num_levels):
-            for cur in _levels(rect, nl):
-                dwt53_fwd_level(plane, cur.height, cur.width, cur.y0 & 1, cur.x0 & 1)
     else:
         out = dc_ict_fwd(planes, dcs, mct) if custom is None else dc_mct_fwd(planes, dcs, custom)
-        out = [dwt97_fwd_levels(plane, [(r.height, r.width, r.y0 & 1, r.x0 & 1)
-                                        for r in _levels(rect, nl)])
-               for plane, rect, nl in zip(out, rects, num_levels)]
+    out = [(dwt97_fwd_levels if irreversible else dwt53_fwd_levels)(
+               plane, [(r.height, r.width, r.y0 & 1, r.x0 & 1) for r in _levels(rect, nl)])
+           for plane, rect, nl in zip(out, rects, num_levels)]
+    if irreversible:
         out = quant_deadzone(out, bands)
     for plane, s in zip(out, rois or ()):
         if s:
@@ -264,12 +263,12 @@ def _check_levels(name: str, plane: torch.Tensor, levels, dtype) -> torch.device
 
 
 def level_launcher(name: str, dev: torch.device):
-    """The launch of K-g, K-k or K-n (kernel ``name``) on ``dev``'s current
-    stream, ``launch(a, b, c, h, w, py, px)``. The inverses (K-g, K-n): the
-    level of the packed ``a`` (its LL quadrant) and ``b`` (the rest) into
-    ``c`` in natural order. The forward (K-k): the level of the
-    natural-order ``a`` into the packed ``b`` (its LL quadrant) and ``c``
-    (the rest). Neither output may overlap an input."""
+    """The launch of K-b, K-g, K-k or K-n (kernel ``name``) on ``dev``'s
+    current stream, ``launch(a, b, c, h, w, py, px)``. The inverses (K-g,
+    K-n): the level of the packed ``a`` (its LL quadrant) and ``b`` (the
+    rest) into ``c`` in natural order. The forwards (K-b, K-k): the level of
+    the natural-order ``a`` into the packed ``b`` (its LL quadrant) and
+    ``c`` (the rest). Neither output may overlap an input."""
     call, stream = kernels.KERNELS[name].call, kernels.stream_ptr(dev)
 
     def launch(a, b, c, h, w, py, px):
@@ -809,11 +808,13 @@ def ict_inv_dc_round_clip_plain(planes, dcs, ranges, ict):
 MCT_MAX_COMPS = 127
 
 
-def _mct_args(planes: list[torch.Tensor], matrix, dtype) -> tuple[torch.device, torch.Tensor]:
-    """The planes' device and ``matrix`` as a float32 [N, N] host tensor;
+def _mct_args(planes: list[torch.Tensor], matrix, dtype) -> tuple[torch.device, np.ndarray]:
+    """The planes' device and ``matrix`` as a float32 [N, N] numpy array;
     N must be the number of planes, which share one shape."""
     dev = _check_planes(planes, False, dtype)
-    m = torch.as_tensor(matrix, dtype=torch.float32).cpu().contiguous()
+    if isinstance(matrix, torch.Tensor):
+        matrix = matrix.cpu()
+    m = np.ascontiguousarray(matrix, dtype=np.float32)
     n = len(planes)
     if m.shape != (n, n):
         raise ValueError(f"the Part-2 MCT of {n} components needs an {n} x {n} matrix, "
@@ -826,18 +827,32 @@ def _mct_args(planes: list[torch.Tensor], matrix, dtype) -> tuple[torch.device, 
     return dev, m
 
 
+_MCT_MATRICES: dict = {}
+
+
+def _mct_matrix(m: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The float32 matrix ``m`` on the card ``dev``: uploaded once per
+    distinct matrix, then found by its bytes."""
+    key = (dev, m.tobytes())
+    t = _MCT_MATRICES.get(key)
+    if t is None:
+        if len(_MCT_MATRICES) >= 64:
+            _MCT_MATRICES.clear()
+        t = _MCT_MATRICES[key] = torch.from_numpy(m.copy()).to(dev)
+    return t
+
+
 def _mct_launch(name: str, planes: list[torch.Tensor], outs: list[torch.Tensor],
-                m: torch.Tensor, *per: torch.Tensor) -> None:
-    """K-r or K-s: the launch copies the plane addresses, the matrix and the
-    per-component arrays ``per`` from host tensors into a device scratch of
-    16 N + 4 N^2 + 12 N bytes, in one copy (csrc/mct_custom.cu)."""
-    n, dev = len(planes), planes[0].device
-    ins, outp = (torch.tensor([p.data_ptr() for p in ps], dtype=torch.int64)
-                 for ps in (planes, outs))
-    scratch = torch.empty(16 * n + 4 * n * n + 12 * n, dtype=torch.uint8, device=dev)
+                m: np.ndarray, *per: np.ndarray) -> None:
+    """K-r or K-s: one launch, the plane addresses and the per-component
+    arrays ``per`` (N 4-byte values each) by value in its parameters, the
+    matrix from ``_mct_matrix`` (csrc/mct_custom.cu)."""
+    dev = planes[0].device
+    ptrs = np.array([p.data_ptr() for p in planes] + [o.data_ptr() for o in outs],
+                    dtype=np.int64)
     kernels.KERNELS[name].call(
-        ins.data_ptr(), outp.data_ptr(), m.data_ptr(), *(a.data_ptr() for a in per),
-        scratch.data_ptr(), planes[0].numel(), n, kernels.stream_ptr(dev))
+        ptrs.ctypes.data, _mct_matrix(m, dev).data_ptr(), *(a.ctypes.data for a in per),
+        planes[0].numel(), len(planes), kernels.stream_ptr(dev))
 
 
 def _fma32(w: float, x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
@@ -877,8 +892,10 @@ def dc_mct_fwd(planes: list[torch.Tensor], dcs: list[int], matrix) -> list[torch
     dev, m = _mct_args(planes, matrix, torch.int32)
     if dev.type == "cpu":
         return dc_mct_fwd_plain(planes, dcs, m)
-    outs = [torch.empty(p.shape, dtype=torch.float32, device=dev) for p in planes]
-    _mct_launch("dc_mct_fwd", planes, outs, m, torch.tensor(dcs, dtype=torch.int32))
+    # at the first input's address modulo 16, so that K-r moves quads of all
+    # planes in 16-byte loads and stores where the inputs share it too
+    outs = [_empty_aligned_as(planes[0], torch.float32) for _ in planes]
+    _mct_launch("dc_mct_fwd", planes, outs, m, np.asarray(dcs, dtype=np.int32))
     return outs
 
 
@@ -897,8 +914,8 @@ def mct_inv_round_clip(planes: list[torch.Tensor], matrix, offsets: list[float],
     if dev.type == "cpu":
         return mct_inv_round_clip_plain(planes, m, offsets, ranges)
     outs = [torch.empty(p.shape, dtype=torch.int32, device=dev) for p in planes]
-    add = torch.tensor([_f32(0.5 + float(o)) for o in offsets], dtype=torch.float32)
-    lo, hi = (torch.tensor(v, dtype=torch.int32) for v in zip(*ranges))
+    add = np.array([0.5 + float(o) for o in offsets], dtype=np.float32)
+    lo, hi = (np.array(v, dtype=np.int32) for v in zip(*ranges))
     _mct_launch("mct_inv_round_clip", planes, outs, m, add, lo, hi)
     return outs
 

@@ -7,7 +7,8 @@ after another, __syncthreads and __syncwarp are barriers, the warp
 shuffles (with their width), ballot and any go through a per-warp
 exchange array (any type of up to 8 bytes), shared-memory atomics are host
 atomics, the float and double intrinsics are the host's IEEE operations
-(built without contraction), a cp.async (__pipeline_memcpy_async) is a
+(built without contraction; __fmaf_rn is the C library's fmaf, which
+rounds once), a cp.async (__pipeline_memcpy_async) is a
 copy at once, and every __ldg, cp.async source
 and global atomicAdd is checked against the buffers of the launch (an
 access outside them aborts). A test's harness defines the launch. What this
@@ -71,6 +72,7 @@ inline double __dsub_rn(double a, double b) { volatile double r = a - b; return 
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }  // rounds once
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
 inline unsigned __brev(unsigned x) {

@@ -68,6 +68,42 @@ def test_dwt53_level_kernel_equals_plain(cuda, h, w, py, px):
     assert torch.equal(got.cpu(), ref)
 
 
+# K-b through every level as forward_transform calls it (one launch a level,
+# out of place): a dist53 tile, a 4K plane, a height one above a multiple of
+# K-b's 60-row tile at odd origins, and that with samples within 8 of +-2^31
+# (every sum of two neighbours wraps)
+@pytest.mark.parametrize("h,w,y0,x0,nl,wrap", [(1024, 1024, 0, 0, 5, False),
+                                               (2160, 3840, 0, 0, 5, False),
+                                               (121, 200, 1, 3, 3, False),
+                                               (121, 200, 1, 3, 3, True),
+                                               (61, 1, 0, 1, 2, False)],
+                         ids=["1024x1024 tile", "2160x3840 plane", "121 rows, odd origin",
+                              "121 rows, odd origin, near 2^31", "one column, odd origin"])
+def test_dwt53_fwd_levels_kernel_equals_plain(cuda, h, w, y0, x0, nl, wrap):
+    from grok_tpu_torch.core.rect import Rect
+
+    rect = Rect(x0, y0, x0 + w, y0 + h)
+    levels = [(r.height, r.width, r.y0 & 1, r.x0 & 1) for r in tr._levels(rect, nl)]
+    rng = np.random.default_rng(h + w + nl)
+    if wrap:
+        near = rng.integers(0, 8, size=(h, w))
+        odd = (np.arange(h)[:, None] + np.arange(w)[None, :]) & 1
+        vals = np.where(odd, -(1 << 31) + near, (1 << 31) - 1 - near)
+    else:
+        vals = rng.integers(-(1 << 16), 1 << 16, size=(h, w))
+    plane = torch.from_numpy(vals.astype(np.int32))
+    ref = plane.clone()
+    for lv in levels:
+        tr.dwt53_fwd_level_plain(ref, *lv)
+    on_card = plane.to(cuda)
+    before = _launches("dwt53_fwd_level")
+    got = tr.dwt53_fwd_levels(on_card, levels)
+    torch.cuda.synchronize()
+    assert _launches("dwt53_fwd_level") == before + len(levels)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(on_card.cpu(), plane), "the natural-order plane is only read"
+
+
 def _batch(seed, n, h, w, styles, bits=12):
     rng = np.random.default_rng(seed)
     mags = rng.integers(1, 1 << bits, size=n)
@@ -1173,12 +1209,14 @@ def _bits32(t):
     return t.cpu().view(torch.int32)
 
 
-@pytest.mark.parametrize("n", [1, 3, 4, 6])
+@pytest.mark.parametrize("n", [1, 3, 4, 6, 17, 127])
 def test_mct_kernels_equal_plain(cuda, n):
     """K-r and K-s against their plain versions on float32 bits, NaN and
-    infinities through K-s's finish included."""
+    infinities through K-s's finish included (127 components on a small
+    plane: the plain versions take 2 N^2 tensor steps)."""
     rng = np.random.default_rng(n + 50)
-    planes = [torch.from_numpy(rng.integers(0, 4096, (61, 97)).astype(np.int32))
+    shape = (61, 97) if n <= 17 else (5, 13)
+    planes = [torch.from_numpy(rng.integers(0, 4096, shape).astype(np.int32))
               for _ in range(n)]
     m = np.eye(n) + rng.uniform(-0.4, 0.4, (n, n))
     dcs = [2048] * n
@@ -1196,6 +1234,43 @@ def test_mct_kernels_equal_plain(cuda, n):
     got = tr.mct_inv_round_clip(fwd, inv, offs, ranges)
     torch.cuda.synchronize()
     assert _launches("mct_inv_round_clip") == before + 1
+    for g, w in zip(got, tr.mct_inv_round_clip_plain([f.cpu() for f in fwd], inv, offs, ranges)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["one alignment", "mixed alignments"])
+@pytest.mark.parametrize("shift", [0, 1, 3])
+@pytest.mark.parametrize("n", [1, 3, 4, 6, 17, 127])
+def test_mct_kernels_on_views_off_alignment(cuda, n, shift, mixed):
+    """Planes that are views of one buffer, the first ``shift`` samples past
+    16-byte alignment, the others at its alignment (4K samples a plane: K-r's
+    16-byte path) or not (4K + 1: sample by sample): K-r's outputs take the
+    first input's alignment, both kernels equal their plain versions, one
+    launch a call, and a call once the matrix is on the card allocates its
+    outputs and nothing else."""
+    rng = np.random.default_rng(n + 10 * shift)
+    shape = ((37, 40) if n <= 17 else (3, 8)) if not mixed else ((37, 41) if n <= 17 else (3, 7))
+    size = shape[0] * shape[1]
+    flat = torch.from_numpy(rng.integers(0, 4096, n * size + 8).astype(np.int32)).to(cuda)
+    base = (shift - (flat.data_ptr() >> 2)) & 3
+    views = [flat[base + k * size:base + (k + 1) * size].view(shape) for k in range(n)]
+    m = (np.eye(n) + rng.uniform(-0.4, 0.4, (n, n))).astype(np.float32)
+    inv = np.linalg.inv(m.astype(np.float64)).astype(np.float32)
+    dcs, offs, ranges = [2048] * n, [2048.0] * n, [(0, 4095)] * n
+    tr.mct_inv_round_clip(tr.dc_mct_fwd(views, dcs, m), inv, offs, ranges)  # the matrices cached
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    before = (_launches("dc_mct_fwd"), _launches("mct_inv_round_clip"))
+    fwd = tr.dc_mct_fwd(views, dcs, m)
+    got = tr.mct_inv_round_clip(fwd, inv, offs, ranges)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] - allocs == 2 * n
+    assert (_launches("dc_mct_fwd"), _launches("mct_inv_round_clip")) == (before[0] + 1,
+                                                                         before[1] + 1)
+    cpu = [v.cpu() for v in views]
+    for f, w in zip(fwd, tr.dc_mct_fwd_plain(cpu, dcs, m)):
+        assert f.data_ptr() % 16 == views[0].data_ptr() % 16
+        assert torch.equal(_bits32(f), w.view(torch.int32))
     for g, w in zip(got, tr.mct_inv_round_clip_plain([f.cpu() for f in fwd], inv, offs, ranges)):
         assert torch.equal(g.cpu(), w)
 
