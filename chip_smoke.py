@@ -66,7 +66,11 @@ line):
               components and on views one sample off 16-byte alignment
               (mct_checks: launches and allocations a call); K-u, K-v
               and K-b/K-g/K-k/K-n's horizontal halves on the level-0
-              sub-block of a shard of the 4096x4096 strip, K-w on
+              sub-block of a shard of the 4096x4096 strip (the 5/3 halves
+              on the level-0 sub-blocks of the card's shards in one launch,
+              as slice_strip launches them, warm and cold, and on one
+              sub-block alone, with their launch, ptxas and the form
+              taken), K-w on
               the 4K tile batch, plain on the card; all compared exactly,
               the float outputs on their bits. Kernel times (KernelTimer):
               one event pair a launch, the median, least and largest of
@@ -79,6 +83,14 @@ line):
      check_forms  K-v's one-pass form at each band that fits and its
               two-pass form on that sub-block, each against the plain
               version, timed in turns with index_select, warm and cold
+     check_long_lines  a 2 x 65,536 plane through every form of the four
+              horizontal halves: the "scratch" form (the wrappers' at this
+              length) on whole lines, the "smem" form on their first
+              MAX_LINE samples, both parities, each equal to its plain
+              version; parity 0 timed warm
+     check_form_choice  both forms of each horizontal half on the
+              LONG_GROUPS launches, each equal to the plain version, timed
+              in turns, warm, beside the form transform.h_form picks
   5. slice    256x256x3 compress on the card, byte-identical to the plain
               path (device="cpu") and to grok_tpu's stream (REF_SHA256);
      slice_p1dec  the Part-1 stream decoded on the card, equal to the plain
@@ -162,7 +174,14 @@ line):
               on the float32 bits; the bridged 5/3 coefficients through
               encode_tile_to_blob inside the port's compress stream of the
               plane; ms of forward, bridge and inverse, halo copies; K-u,
-              K-v and the horizontal halves must launch
+              K-v and the horizontal halves must launch, each 5/3 half
+              once a level a card (5 a pass on one card)
+     slice_strip_long  a 128 x 65,536 plane (LONG_STRIP), LONG_LEVELS
+              levels, over the mesh: level 0's lines take the horizontal
+              halves' "scratch" form, the others the "smem" form; 9/7
+              equal to K-k unsharded on the float32 bits and 5/3 to K-b,
+              the inverses to the unsharded K-n and K-g inverses and the
+              input (9/7 within 1e-3, 5/3 exactly)
  10. corpus   every .j2k of tests/corpus/streams decoded on the card with
               the manifest's decode parameters: identical to grok_tpu's
               decode (CORPUS_REF_MD5), or refused by name; none may differ
@@ -310,6 +329,14 @@ DIST53 = dict(num_resolutions=6, tile_size=(1024, 1024))
 DIST97 = dict(DIST53, irreversible=True)
 FRAME_SEEDS = (3, 4, 5, 6)
 STRIP, STRIP_LEVELS = 4096, 5
+# slice_strip_long: lines past transform.MAX_LINE
+LONG_STRIP, LONG_LEVELS = (128, 65536), 3
+# check_form_choice: launches of a few long lines (planes, rows a plane,
+# columns), where transform.h_form weighs the forms: a 2-row plane,
+# slice_strip_long's levels 1 and 2 on one shard and on four, and lines on
+# either side of h_form's thresholds
+LONG_GROUPS = ((1, 2, 51200), (1, 16, 32768), (4, 16, 32768), (1, 8, 16384), (4, 8, 16384),
+               (1, 32, 16384), (1, 128, 16384), (4, 32, 51200))
 # the 4K tile batch of make_sharded_transform: 8 tiles of 1024 x 960 from
 # the top 2048 rows of the 4K image
 TILE_BATCH = (2, 4, 1024, 960)
@@ -750,6 +777,78 @@ def pack_forms(torch, timer, k6, x_i, x_f, rows_of):
         if not all(equal):
             raise AssertionError(f"{name}: a form differs from the plain version: "
                                  f"{dict(zip(labels, equal))}")
+
+
+def long_lines(torch, tr, kernels, timer, same_bits, dev):
+    """The four horizontal halves on a 2 x 65,536 plane in each form: the
+    "scratch" form through the wrappers (the form they take at this
+    length) on whole lines, the "smem" form through ``tr.launch_h`` on the
+    first MAX_LINE samples of each line; both parities, each equal to its
+    plain version on the bits and counted in its form; parity 0 timed warm."""
+    h, w = 2, LONG_STRIP[1]
+    rng = np.random.default_rng(7)
+    x_i = torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, (h, w)).astype(np.int32)).to(dev)
+    x_f = torch.from_numpy((rng.standard_normal((h, w)) * 300).astype(np.float32)).to(dev)
+    rows = {}
+    for name, x in (("dwt53_fwd_h", x_i), ("dwt53_inv_h", x_i), ("dwt97_fwd_h", x_f),
+                    ("dwt97_inv_h", x_f)):
+        k, plain = kernels.KERNELS[name], getattr(tr, f"{name}_plain")
+        for form, width in (("scratch", w), ("smem", tr.MAX_LINE)):
+            def run(y, px, form=form, width=width, name=name):
+                if form == tr.h_form(name, width, h, tr.sm_count(dev)):
+                    getattr(tr, name)(y, h, width, px)
+                else:
+                    tr.launch_h(name, [y], h, width, px, form)
+            equal = True
+            for px in (0, 1):
+                got, ref = x.clone(), x.clone()
+                before = k.forms.get(form, 0)
+                run(got, px)
+                plain(ref, h, width, px)
+                equal = equal and same_bits(got, ref) and k.forms[form] == before + 1
+            scratch = x.clone()
+            rows[f"{name} {form}"] = dict(width=width, equal=equal,
+                                          ms=timer.warm(lambda run=run: run(scratch, 0)))
+    emit({"phase": "check_long_lines", "shape": f"{h}x{w}", "forms": rows})
+    if not all(r["equal"] for r in rows.values()):
+        raise AssertionError(f"a horizontal half's form differs from its plain version: {rows}")
+
+
+def form_choice(torch, tr, timer, same_bits, dev):
+    """Both forms of each horizontal half on each LONG_GROUPS launch (n
+    planes of h x w), parity 0, each equal to the plain version on the
+    bits, timed in turns, warm, beside the form transform.h_form picks for
+    that launch: the measurement behind its rule."""
+    rng = np.random.default_rng(9)
+    sms, out = tr.sm_count(dev), []
+    for n, h, w in LONG_GROUPS:
+        for name in ("dwt53_fwd_h", "dwt53_inv_h", "dwt97_fwd_h", "dwt97_inv_h"):
+            if name.startswith("dwt53"):
+                x = [torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, (h, w)).astype(np.int32))
+                     .to(dev) for _ in range(n)]
+            else:
+                x = [torch.from_numpy((rng.standard_normal((h, w)) * 300).astype(np.float32))
+                     .to(dev) for _ in range(n)]
+            plain = getattr(tr, f"{name}_plain")
+            refs = [t.clone() for t in x]
+            for r in refs:
+                plain(r, h, w, 0)
+            equal = True
+            for form in tr.H_FORMS:
+                got = [t.clone() for t in x]
+                tr.launch_h(name, got, h, w, 0, form)
+                equal = equal and all(map(same_bits, got, refs))
+            fns = [lambda form=form, name=name: tr.launch_h(name, x, h, w, 0, form)
+                   for form in tr.H_FORMS]
+            times = timer.turns(fns)
+            out.append(dict(half=name, planes=n, rows=h, width=w, equal=equal,
+                            lines_a_launch=tr.h_lines(name, x, h), sms=sms,
+                            picked=tr.h_form(name, w, tr.h_lines(name, x, h), sms),
+                            **{f: t["ms"] for f, t in zip(tr.H_FORMS, times)}))
+            del x, refs
+    emit({"phase": "check_form_choice", "launches": out})
+    if not all(r["equal"] for r in out):
+        raise AssertionError(f"a horizontal half's form differs from its plain version: {out}")
 
 
 def cuda_ms(torch, fn, reps=5):
@@ -1255,36 +1354,11 @@ def k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap):
     strip = {}
     for irrev in (False, True):
         x = torch.from_numpy(x_strip).to(dev).to(torch.float32 if irrev else torch.int32)
-        fwd, inv = gt.make_sharded_strip_dwt(mesh, STRIP_LEVELS, irreversible=irrev)
-        shards = pm.split_rows(x, mesh, x.dtype)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        shards = pm.sharded_dwt97_forward(shards, STRIP_LEVELS) if irrev else \
-            pm.sharded_dwt53_forward(shards, STRIP_LEVELS)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        bridged = pm.strip_to_mallat(pm.join_rows(shards), len(mesh), STRIP_LEVELS)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        back = pm.join_rows(inv(shards))
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        ref = x.clone()
-        for lvl in range(STRIP_LEVELS):
-            (tr.dwt97_fwd_level if irrev else tr.dwt53_fwd_level)(ref, STRIP >> lvl,
-                                                                  STRIP >> lvl, 0, 0)
         tag = "97" if irrev else "53"
-        fwd_same = same_bits(bridged, ref)
-        for lvl in range(STRIP_LEVELS, 0, -1):
-            (tr.dwt97_inv_level if irrev else tr.dwt53_inv_level)(
-                ref, STRIP >> (lvl - 1), STRIP >> (lvl - 1), 0, 0)
-        strip[tag] = dict(forward_ms=(t1 - t0) * 1e3, bridge_ms=(t2 - t1) * 1e3,
-                          inverse_ms=(t3 - t2) * 1e3, equal_unsharded=fwd_same,
-                          inverse_equal_unsharded=same_bits(back, ref),
-                          inverse_max_abs_err=float((back.double() - x.double()).abs().max()))
+        strip[tag], bridged = strip_round_trip(torch, mesh, x, STRIP_LEVELS, irrev, same_bits)
         if not irrev:
             coeffs53 = bridged
-        del shards, back, ref
+        del bridged
     one_img = gt.Image.from_array(x_strip + 128)
     one_img.finalize()
     p6 = gt.CompressParams(num_resolutions=STRIP_LEVELS + 1)
@@ -1300,20 +1374,104 @@ def k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap):
           "halo_copies": pm.halo_copies(), "blob_bytes": len(blob),
           "blob_in_compress_stream": blob in strip_stream, "encode_ms": (t1 - t0) * 1e3,
           "launches": strip_counts, "forms": strip_forms})
-    # the 9/7 round trip within the reference's own bound
-    # (tests/test_parallel.py's 1e-3); 5/3 exact
-    if not (all(strip[t]["equal_unsharded"] and strip[t]["inverse_equal_unsharded"]
-                for t in ("53", "97"))
-            and strip["53"]["inverse_max_abs_err"] == 0
-            and strip["97"]["inverse_max_abs_err"] < 1e-3 and blob in strip_stream):
+    if not (round_trips_hold(strip) and blob in strip_stream):
         raise AssertionError(f"slice_strip: {strip}, blob in stream {blob in strip_stream}")
     if any(strip_counts[k] <= 0 for k in STRIP_KERNELS):
         raise AssertionError(f"a kernel of the strip path never launched: {strip_counts}")
+    per_pass = STRIP_LEVELS * len(set(mesh.devices))  # a launch a level a card
+    if (strip_counts["dwt53_fwd_h"], strip_counts["dwt53_inv_h"]) != (per_pass, per_pass):
+        raise AssertionError(f"slice_strip: the 5/3 halves launched {strip_counts} times, "
+                             f"not {per_pass} each")
     got.update({k: strip_counts[k] for k in STRIP_KERNELS})
     del coeffs53, blob, strip_stream
 
+    long_strip(torch, mesh, dev, same_bits)
+
     lap("slice_strip")
     return got, strip_forms
+
+
+def strip_round_trip(torch, mesh, x, levels, irrev, same_bits):
+    """The strip wavelet of plane ``x`` over ``mesh``, 9/7 or 5/3: the host
+    ms (synchronised) of the forward, the bridge and the inverse; whether
+    the bridged forward equals K-k or K-b unsharded and the inverse the
+    unsharded K-n or K-g inverse of that, on the bits; the inverse's largest
+    error against x. Returns those and the bridged coefficients."""
+    import grok_tpu_torch as gt
+    from grok_tpu_torch.ops import transform as tr
+    from grok_tpu_torch.parallel import mesh as pm
+
+    h, w = x.shape
+    _, inv = gt.make_sharded_strip_dwt(mesh, levels, irreversible=irrev)
+    shards = pm.split_rows(x, mesh, x.dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shards = pm.sharded_dwt97_forward(shards, levels) if irrev else \
+        pm.sharded_dwt53_forward(shards, levels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bridged = pm.strip_to_mallat(pm.join_rows(shards), len(mesh), levels)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    back = pm.join_rows(inv(shards))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ref = x.clone()
+    for lvl in range(levels):
+        (tr.dwt97_fwd_level if irrev else tr.dwt53_fwd_level)(ref, h >> lvl, w >> lvl, 0, 0)
+    fwd_same = same_bits(bridged, ref)
+    for lvl in range(levels, 0, -1):
+        (tr.dwt97_inv_level if irrev else tr.dwt53_inv_level)(
+            ref, h >> (lvl - 1), w >> (lvl - 1), 0, 0)
+    return dict(forward_ms=(t1 - t0) * 1e3, bridge_ms=(t2 - t1) * 1e3,
+                inverse_ms=(t3 - t2) * 1e3, equal_unsharded=fwd_same,
+                inverse_equal_unsharded=same_bits(back, ref),
+                inverse_max_abs_err=float((back.double() - x.double()).abs().max())), bridged
+
+
+def round_trips_hold(res) -> bool:
+    """strip_round_trip's results hold: equal to the unsharded levels both
+    ways, the 5/3 inverse exact and the 9/7 one within the reference's own
+    bound (tests/test_parallel.py's 1e-3)."""
+    return (all(r["equal_unsharded"] and r["inverse_equal_unsharded"] for r in res.values())
+            and res["53"]["inverse_max_abs_err"] == 0 and res["97"]["inverse_max_abs_err"] < 1e-3)
+
+
+def long_strip(torch, mesh, dev, same_bits):
+    """slice_strip_long: the LONG_STRIP plane over ``mesh``, LONG_LEVELS
+    levels, 9/7 and 5/3 (strip_round_trip): level 0's lines past MAX_LINE
+    take the horizontal halves' "scratch" form, the coarser ones the form
+    transform.h_form picks for their launch; each half must launch in the
+    forms h_form gives, as many times as the levels and cards ask."""
+    from grok_tpu_torch import kernels
+    from grok_tpu_torch.ops import transform as tr
+
+    before = kernels.form_counts()
+    x_long = torch.from_numpy(natural_image(*LONG_STRIP, 1) - 128).to(dev)
+    res = {}
+    for irrev in (True, False):
+        x = x_long.to(torch.float32 if irrev else torch.int32)
+        res["97" if irrev else "53"], _ = strip_round_trip(torch, mesh, x, LONG_LEVELS, irrev,
+                                                           same_bits)
+    after = kernels.form_counts()
+    long_forms = {k: {f: c - before.get(k, {}).get(f, 0) for f, c in v.items()}
+                  for k, v in after.items() if k.startswith("dwt")}
+    cards = {d: sum(e == d for e in mesh.devices) for d in mesh.devices}
+    want = {}
+    for name in STRIP_KERNELS[4:]:
+        want[name] = {}
+        for lvl in range(LONG_LEVELS):
+            h, w = (LONG_STRIP[0] // len(mesh)) >> lvl, LONG_STRIP[1] >> lvl
+            for d, n in cards.items():
+                shards = [None] * n
+                f = tr.h_form(name, w, tr.h_lines(name, shards, h), tr.sm_count(d))
+                launches = 1 if name.startswith("dwt53") else n
+                want[name][f] = want[name].get(f, 0) + launches
+    emit({"phase": "slice_strip_long", "plane": "x".join(map(str, LONG_STRIP)),
+          "levels": LONG_LEVELS, **res, "forms": long_forms, "forms_wanted": want})
+    got_forms = {k: {f: c for f, c in long_forms.get(k, {}).items() if c} for k in want}
+    if not (round_trips_hold(res) and got_forms == want):
+        raise AssertionError(f"slice_strip_long: {res}, forms {long_forms}, wanted {want}")
 
 
 def cards_main(torch, gt, mesh, dev, smi, kind, lap, walls) -> int:
@@ -2090,18 +2248,26 @@ def main() -> int:
 
     def k6_check(name, fn, plain, x, args, bytes_, ops, op_rate=INT32_OPS_PER_S, lib=None,
                  cold=False, shape=""):
-        """``lib``, if any, maps the kernel's scratch to its library call."""
-        got, ref = x.clone(), x.clone()
+        """``x``: a plane, or a list of planes that ``fn`` takes at once;
+        ``lib``, if any, maps the kernel's scratch to its library call."""
+        many = isinstance(x, list)
+        copy = (lambda: [t.clone() for t in x]) if many else x.clone
+        got, ref = copy(), copy()
+        before = dict(kernels.KERNELS[name].forms)
         fn(got, *args)
-        plain(ref, *args)
-        err = 0 if same_bits(got, ref) else 1
-        scratch = x.clone()
+        forms = {f: c - before.get(f, 0) for f, c in kernels.KERNELS[name].forms.items()
+                 if c != before.get(f, 0)}
+        for r in ref if many else [ref]:
+            plain(r, *args)
+        err = 0 if all(map(same_bits, *((got, ref) if many else ([got], [ref])))) else 1
+        scratch = copy()
         stats[name] = dict(
-            max_abs_err=err,
+            max_abs_err=err, **({"forms": forms} if forms else {}),
             **timer.row(lambda: fn(scratch, *args), lib and (lambda: lib(scratch)), cold,
                         bytes_),
-            plain_ms=cuda_ms(torch, lambda: plain(scratch, *args)), bytes=bytes_, ops=ops,
-            op_rate=op_rate, shape=shape)
+            plain_ms=cuda_ms(torch, lambda: [plain(t, *args) for t in scratch] if many
+                             else plain(scratch, *args)),
+            bytes=bytes_, ops=ops, op_rate=op_rate, shape=shape)
 
     where = f"level-0 sub-block {sub_h}x{sub_w} of shard {k_sub} of the {STRIP}x{STRIP} strip"
     k6_check("strip53_step", k6.strip53_step, k6.strip53_step_plain, sh_i[k_sub],
@@ -2138,13 +2304,39 @@ def main() -> int:
     if hasattr(k6, "launch_pack"):  # a checkout from before K-v's forms has one form
         pack_forms(torch, timer, k6, sh_i[k_sub], sh_f[k_sub], rows_of={False: perm,
                                                                    True: unperm})
-    for name, fn, plain, x, ops, rate in (
-            ("dwt53_fwd_h", tr.dwt53_fwd_h, tr.dwt53_fwd_h_plain, sh_i[k_sub], 4, INT32_OPS_PER_S),
-            ("dwt53_inv_h", tr.dwt53_inv_h, tr.dwt53_inv_h_plain, sh_i[k_sub], 4, INT32_OPS_PER_S),
-            ("dwt97_fwd_h", tr.dwt97_fwd_h, tr.dwt97_fwd_h_plain, sh_f[k_sub], 13, FP32_OPS_PER_S),
-            ("dwt97_inv_h", tr.dwt97_inv_h, tr.dwt97_inv_h_plain, sh_f[k_sub], 13, FP32_OPS_PER_S)):
-        k6_check(name, fn, plain, x, (sub_h, sub_w, 0), 8 * sub_px, ops * sub_px, rate,
-                 shape=f"parity 0, {where}")
+    # the 5/3 halves on the level-0 sub-blocks of the card's shards in one
+    # launch (slice_strip's launch: its launches and this time describe the
+    # same work), then on shard k_sub's alone
+    card = [s for s in sh_i if s.device == sh_i[k_sub].device]
+    for name, fn, plain in (("dwt53_fwd_h", tr.dwt53_fwd_h, tr.dwt53_fwd_h_plain),
+                            ("dwt53_inv_h", tr.dwt53_inv_h, tr.dwt53_inv_h_plain)):
+        k6_check(name, fn, plain, card, (sub_h, sub_w, 0), 8 * sub_px * len(card),
+                 4 * sub_px * len(card), cold=True,
+                 shape=f"parity 0, the level-0 sub-blocks {sub_h}x{sub_w} of the card's "
+                       f"{len(card)} shards of the {STRIP}x{STRIP} strip in one launch")
+        group = stats.pop(name)
+        k6_check(name, fn, plain, sh_i[k_sub], (sub_h, sub_w, 0), 8 * sub_px, 4 * sub_px,
+                 cold=True, shape=f"parity 0, {where}")
+        one = stats[name]
+        one["bound_ms"] = one["bytes"] / HBM_BYTES_PER_S * 1e3
+        stats[name] = dict(group, one_plane={k: one[k] for k in (
+            "ms", "ms_min", "ms_max", "cold_ms", "cold_ms_min", "cold_ms_max", "bytes",
+            "bound_ms", "max_abs_err")})
+        stats[name]["max_abs_err"] |= one["max_abs_err"]
+    for name, fn, plain in (("dwt97_fwd_h", tr.dwt97_fwd_h, tr.dwt97_fwd_h_plain),
+                            ("dwt97_inv_h", tr.dwt97_inv_h, tr.dwt97_inv_h_plain)):
+        k6_check(name, fn, plain, sh_f[k_sub], (sub_h, sub_w, 0), 8 * sub_px, 13 * sub_px,
+                 FP32_OPS_PER_S, shape=f"parity 0, {where}")
+    for name in ("dwt53_fwd_h", "dwt53_inv_h"):  # the "smem" form's launch at this sub-block
+        src = kernels.KERNELS[name].source
+        threads, rows, smem, blocks = c_ints(kernels, src, f"{name}_occupancy", sub_h, sub_w,
+                                             outs=4)
+        stats[name].update(launch=dict(threads_a_block=threads, rows_a_block=rows,
+                                       shared_bytes_a_block=smem, blocks_per_sm=blocks,
+                                       blocks=len(card) * -(-sub_h // rows)),
+                           ptxas=ptxas(src.rsplit(".", 1)[0]))
+    long_lines(torch, tr, kernels, timer, same_bits, dev)
+    form_choice(torch, tr, timer, same_bits, dev)
     del sh_i, sh_f
     # K-w at the shape make_sharded_transform launches it: one shard's slice
     # of the 4K tile batch's packed coefficients

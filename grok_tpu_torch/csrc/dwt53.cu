@@ -44,10 +44,8 @@
 // other tiles' inputs, so the level writes out of place
 // (transform.fwd_ping_pong runs the levels).
 //
-// The horizontal half alone (dwt53_fwd_h, the sharded strip wavelet): each
-// output sample is one thread, which recomputes its lifting neighbourhood
-// (at most five source samples) with clamped indices, from a compact copy
-// of the sub-block back into place.
+// The horizontal half alone (dwt53_fwd_h, the sharded strip wavelet) lives
+// in strip53_h.cu.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -173,50 +171,6 @@ dwt53_fwd_tile(const int32_t* __restrict__ src, int64_t ld, int32_t* __restrict_
     }
 }
 
-// ---------------------------------------------------------------- the horizontal half
-struct Line {
-    const int32_t* p;
-    int64_t step;
-    __device__ __forceinline__ int32_t at(int i) const { return p[i * step]; }
-};
-
-__device__ __forceinline__ int32_t s_at(const Line& L, int i, int par) {
-    return L.at(2 * i + par);
-}
-
-__device__ __forceinline__ int32_t d_at(const Line& L, int j, int par) {
-    return L.at(2 * j + 1 - par);
-}
-
-// high-pass output j after the predict step
-__device__ __forceinline__ int32_t dprime(const Line& L, int j, int par, int sn) {
-    const int sl = par == 0 ? j : max(j - 1, 0);
-    const int sr = min(par == 0 ? j + 1 : j, sn - 1);
-    return wsub(d_at(L, j, par), wadd(s_at(L, sl, par), s_at(L, sr, par)) >> 1);
-}
-
-// Mallat-packed output o of a length-n line: [low | high]
-__device__ __forceinline__ int32_t lift_out(const Line& L, int n, int par, int o) {
-    if (n == 1) return par ? wadd(L.at(0), L.at(0)) : L.at(0);
-    const int sn = par ? n / 2 : (n + 1) / 2;
-    const int dn = n - sn;
-    if (o >= sn) return dprime(L, o - sn, par, sn);
-    const int dl = par == 0 ? max(o - 1, 0) : o;
-    const int dr = min(par == 0 ? o : o + 1, dn - 1);
-    return wadd(s_at(L, o, par),
-                wadd(wadd(dprime(L, dl, par, sn), dprime(L, dr, par, sn)), 2) >> 2);
-}
-
-__global__ void dwt53_horz(const int32_t* __restrict__ tmp,
-                           int32_t* __restrict__ plane, int ld, int h, int w,
-                           int par) {
-    const int o = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (o >= w || y >= h) return;
-    const Line L{tmp + (int64_t)y * w, 1};
-    plane[(int64_t)y * ld + o] = lift_out(L, w, par, o);
-}
-
 // ---------------------------------------------------------------- the C entries
 // a K-b tile's threads and shared bytes, and its blocks resident on one SM
 extern "C" int dwt53_fwd_occupancy(int* threads, int* smem, int* blocks) {
@@ -237,21 +191,5 @@ extern "C" int dwt53_fwd_level(const void* src, int64_t ld, void* ll, int64_t ld
     const dim3 grid((w + FTW - 1) / FTW, (h + FTH - 1) / FTH);
     dwt53_fwd_tile<<<grid, FWD_THREADS, FTR * FTP * sizeof(int32_t), (cudaStream_t)stream>>>(
         (const int32_t*)src, ld, (int32_t*)ll, ld_ll, (int32_t*)dst, ld_dst, h, w, py, px);
-    return (int)cudaGetLastError();
-}
-
-// The horizontal half alone (K6's _fwd53_h_local, grok_tpu/parallel/
-// mesh.py:118, with the origin parity px): the sub-block is copied to the
-// compact scratch and lifted back into place.
-extern "C" int dwt53_fwd_h(void* plane, void* tmp, int ld, int h, int w, int px,
-                           void* stream) {
-    if (h <= 0 || w <= 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    int rc = (int)cudaMemcpy2DAsync(tmp, (size_t)w * 4, plane, (size_t)ld * 4, (size_t)w * 4,
-                                    (size_t)h, cudaMemcpyDeviceToDevice, st);
-    if (rc) return rc;
-    const dim3 block(32, 8);
-    const dim3 grid((w + 31) / 32, (h + 7) / 8);
-    dwt53_horz<<<grid, block, 0, st>>>((const int32_t*)tmp, (int32_t*)plane, ld, h, w, px);
     return (int)cudaGetLastError();
 }

@@ -39,10 +39,8 @@
 // two sources and a destination that overlaps neither
 // (transform.inv_ping_pong runs the levels).
 //
-// The horizontal half alone (dwt53_inv_h, the sharded strip wavelet): each
-// output sample is one thread, which recomputes its lifting neighbourhood
-// (at most seven packed samples) with clamped indices, into a compact
-// scratch plane copied back into place.
+// The horizontal half alone (dwt53_inv_h, the sharded strip wavelet) lives
+// in strip53_h.cu.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -162,43 +160,7 @@ dwt53_inv_tile(const int32_t* __restrict__ ll, int64_t ld_ll, const int32_t* __r
         if (y0 + r - HALO < h) out[(y0 + r - HALO) * ld_dst] = x[r];
 }
 
-// ---------------------------------------------------------------- the horizontal half
-struct Line {
-    const int32_t* p;
-    int64_t step;
-    __device__ __forceinline__ int32_t at(int i) const { return p[i * step]; }
-};
-
-// low-pass sample i after the update step: s[i] - (d[l] + d[r] + 2) >> 2;
-// the packed line holds s in [0, sn) and d in [sn, n)
-__device__ __forceinline__ int32_t s_out(const Line& L, int i, int par, int sn, int dn) {
-    const int dl = par == 0 ? max(i - 1, 0) : i;
-    const int dr = min(par == 0 ? i : i + 1, dn - 1);
-    return L.at(i) - ((L.at(sn + dl) + L.at(sn + dr) + 2) >> 2);
-}
-
-// natural-order output o of a length-n packed line
-__device__ __forceinline__ int32_t unlift_out(const Line& L, int n, int par, int o) {
-    if (n == 1) return par ? (L.at(0) >> 1) : L.at(0);
-    const int sn = par ? n / 2 : (n + 1) / 2;
-    const int dn = n - sn;
-    const int k = o >> 1;
-    if ((o & 1) == par) return s_out(L, k, par, sn, dn);
-    const int sl = par == 0 ? k : max(k - 1, 0);
-    const int sr = min(par == 0 ? k + 1 : k, sn - 1);
-    return L.at(sn + k) + ((s_out(L, sl, par, sn, dn) + s_out(L, sr, par, sn, dn)) >> 1);
-}
-
-__global__ void dwt53_inv_horz(const int32_t* __restrict__ plane,
-                               int32_t* __restrict__ tmp, int ld, int h, int w,
-                               int par) {
-    const int o = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (o >= w || y >= h) return;
-    const Line L{plane + (int64_t)y * ld, 1};
-    tmp[(int64_t)y * w + o] = unlift_out(L, w, par, o);
-}
-
+// ---------------------------------------------------------------- the C entries
 // a K-g tile's threads and shared bytes, and its blocks resident on one SM
 extern "C" int dwt53_inv_occupancy(int* threads, int* smem, int* blocks) {
     *threads = INV_THREADS;
@@ -219,21 +181,4 @@ extern "C" int dwt53_inv_level(const void* ll, int64_t ld_ll, const void* src, i
         (const int32_t*)ll, ld_ll, (const int32_t*)src, ld, (int32_t*)dst, ld_dst, h, w, py,
         px);
     return (int)cudaGetLastError();
-}
-
-// The horizontal half alone (K6's _inv53_h_local, grok_tpu/parallel/
-// mesh.py:130, with the origin parity px): dwt53_inv_horz into the compact
-// scratch, then the scratch copied back into place.
-extern "C" int dwt53_inv_h(void* plane, void* tmp, int ld, int h, int w, int px,
-                           void* stream) {
-    if (h <= 0 || w <= 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    const dim3 block(32, 8);
-    const dim3 grid((w + 31) / 32, (h + 7) / 8);
-    dwt53_inv_horz<<<grid, block, 0, st>>>((const int32_t*)plane, (int32_t*)tmp, ld, h, w,
-                                           px);
-    int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    return (int)cudaMemcpy2DAsync(plane, (size_t)ld * 4, tmp, (size_t)w * 4, (size_t)w * 4,
-                                  (size_t)h, cudaMemcpyDeviceToDevice, st);
 }

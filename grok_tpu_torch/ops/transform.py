@@ -47,6 +47,8 @@ launch the kernel. So the kernels and their plain versions are bit-exact.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -160,46 +162,124 @@ def dwt53_fwd_level_plain(plane, h, w, py, px):
     plane[:h, :w] = _fwd53_axis(sub, 1, px)
 
 
-# ============================================= K-b, K-g: the horizontal half alone
-def _h_level(name: str, plain, plane: torch.Tensor, h: int, w: int, px: int,
-             dtype=torch.int32, scratch: bool = True) -> None:
-    _check_plane(plane, "plane", dtype)
-    if h > plane.shape[0] or w > plane.shape[1]:
+# ============================================= the horizontal halves alone
+# The strip wavelet's horizontal passes (grok_tpu_torch/parallel/mesh.py):
+# K-b's and K-g's here, K-k's and K-n's (dwt97_fwd_h, dwt97_inv_h) below.
+# Each has two forms, counted apart in kernels.form_counts(): "smem" stages
+# whole lines in shared memory and works in place, up to MAX_LINE samples
+# (csrc/strip53_h.cu H_MAX_LINE, csrc/dwt97.cu kMaxSmem);
+# "scratch" takes a line of any length through a compact scratch. The line
+# length and the lines a launch pick the form (h_form).
+MAX_LINE = 50 * 1024
+SHORT_LINE = 4096  # the longest line a "smem" block of either half lifts as one of several
+# A launch of lines past SHORT_LINE takes "scratch" when they number fewer
+# than the card's SMs over FEW_LINES_DIV: a "smem" block lifts such a line
+# alone (about 2.1 ns a sample in a 9/7 block, 0.4 in a 5/3 one, on an
+# H100), so a few lines leave SMs idle (chip_smoke.py check_form_choice
+# times both forms on such launches).
+FEW_LINES_DIV = {"dwt53": 5, "dwt97": 1}
+H_FORMS = ("smem", "scratch")
+H_MAX_PLANES = 8  # planes a launch of a 5/3 half (csrc/strip53_h.cu H_PLANES)
+
+
+def h_form(name: str, w: int, lines: int, sms: int) -> str:
+    """The form of a launch of horizontal half ``name`` over ``lines`` lines
+    of ``w`` samples on a card of ``sms`` SMs: "smem" up to MAX_LINE
+    samples, unless the lines are longer than SHORT_LINE and fewer than
+    sms / FEW_LINES_DIV; else "scratch", which spreads every sample over
+    the card."""
+    if w > MAX_LINE or (w > SHORT_LINE and lines * FEW_LINES_DIV[name[:5]] < sms):
+        return "scratch"
+    return "smem"
+
+
+@functools.cache
+def sm_count(dev: torch.device) -> int:
+    """The SMs of CUDA device ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def h_lines(name: str, planes: list, h: int) -> int:
+    """The lines of one launch of horizontal half ``name`` over ``planes``
+    (h rows each): a 5/3 half launches for up to H_MAX_PLANES planes at
+    once, a 9/7 half once a plane."""
+    return h * (min(len(planes), H_MAX_PLANES) if name.startswith("dwt53") else 1)
+
+
+def _h_planes(planes, dtype, h: int, w: int) -> list[torch.Tensor]:
+    """``planes`` (a plane, or a list of planes of one shape on one device)
+    as a list, checked to hold an h x w region."""
+    planes = list(planes) if isinstance(planes, (list, tuple)) else [planes]
+    for i, p in enumerate(planes):
+        _check_plane(p, f"plane {i}", dtype)
+        if p.device != planes[0].device or p.shape != planes[0].shape:
+            raise ValueError("the planes of a horizontal half share one device and one shape")
+    if planes and (h > planes[0].shape[0] or w > planes[0].shape[1]):
         raise ValueError("level region exceeds the plane")
-    if h == 0 or w == 0:
+    if planes and planes[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {planes[0].device}")
+    return planes
+
+
+def _h_half(name: str, plain, planes, h: int, w: int, px: int, dtype) -> None:
+    planes = _h_planes(planes, dtype, h, w)
+    if not planes or h == 0 or w == 0:
         return
-    dev = plane.device
-    if dev.type == "cpu":
-        plain(plane, h, w, px)
+    if planes[0].device.type == "cpu":
+        for p in planes:
+            plain(p, h, w, px)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if scratch:
-        tmp = torch.empty(h * w, dtype=dtype, device=dev)
-        kernels.KERNELS[name].call(plane.data_ptr(), tmp.data_ptr(), plane.stride(0), h, w, px,
-                                   kernels.stream_ptr(dev))
+    form = h_form(name, w, h_lines(name, planes, h), sm_count(planes[0].device))
+    launch_h(name, planes, h, w, px, form)
+
+
+def launch_h(name: str, planes: list[torch.Tensor], h: int, w: int, px: int,
+             form: str) -> None:
+    """Horizontal half ``name`` (dwt53_fwd_h, dwt53_inv_h, dwt97_fwd_h or
+    dwt97_inv_h) in ``form`` on CUDA planes of one shape, in place on the
+    top-left h x w of each: a 5/3 half one launch for up to H_MAX_PLANES
+    planes, a 9/7 half one launch a plane. "scratch" takes any length (it
+    allocates h * w samples a plane); "smem" past MAX_LINE raises."""
+    if form not in H_FORMS:
+        raise ValueError(f"{name}: no form {form!r}")
+    k = kernels.KERNELS[name]
+    dev, dtype, ld = planes[0].device, planes[0].dtype, planes[0].stride(0)
+    stream = kernels.stream_ptr(dev)
+
+    def scratch(n: int):
+        return torch.empty(n * h * w, dtype=dtype, device=dev) if form == "scratch" else None
+
+    if name.startswith("dwt53"):
+        for i in range(0, len(planes), H_MAX_PLANES):
+            group = planes[i:i + H_MAX_PLANES]
+            ptrs = np.array([p.data_ptr() for p in group], dtype=np.int64)
+            tmp = scratch(len(group))
+            k.call(ptrs.ctypes.data, len(group), ld, h, w, px,
+                   None if tmp is None else tmp.data_ptr(), stream, form=form)
     else:
-        if w > MAX_LINE_97:
-            raise UnsupportedFeatureError(
-                f"outside the ported slices: 9/7 lines longer than {MAX_LINE_97} samples")
-        kernels.KERNELS[name].call(plane.data_ptr(), plane.stride(0), h, w, px,
-                                   kernels.stream_ptr(dev))
+        for p in planes:
+            tmp = scratch(1)
+            k.call(p.data_ptr(), None if tmp is None else tmp.data_ptr(), ld, h, w, px, stream,
+                   form=form)
 
 
-def dwt53_fwd_h(plane: torch.Tensor, h: int, w: int, px: int) -> None:
+def dwt53_fwd_h(planes, h: int, w: int, px: int) -> None:
     """K-b's horizontal pass alone, in place: each row of the top-left
-    h x w of ``plane`` becomes [low | high] (origin parity px)."""
-    _h_level("dwt53_fwd_h", dwt53_fwd_h_plain, plane, h, w, px)
+    h x w of a plane becomes [low | high] (origin parity px). ``planes``: an
+    int32 plane, or a list of planes of one shape on one device (on a card,
+    one launch for up to H_MAX_PLANES of them)."""
+    _h_half("dwt53_fwd_h", dwt53_fwd_h_plain, planes, h, w, px, torch.int32)
 
 
 def dwt53_fwd_h_plain(plane, h, w, px):
     plane[:h, :w] = _fwd53_axis(plane[:h, :w], 1, px)
 
 
-def dwt53_inv_h(plane: torch.Tensor, h: int, w: int, px: int) -> None:
+def dwt53_inv_h(planes, h: int, w: int, px: int) -> None:
     """K-g's horizontal pass alone, in place: each [low | high] row of the
-    top-left h x w of ``plane`` back to natural order."""
-    _h_level("dwt53_inv_h", dwt53_inv_h_plain, plane, h, w, px)
+    top-left h x w of a plane back to natural order; ``planes`` as for
+    dwt53_fwd_h."""
+    _h_half("dwt53_inv_h", dwt53_inv_h_plain, planes, h, w, px, torch.int32)
 
 
 def dwt53_inv_h_plain(plane, h, w, px):
@@ -483,9 +563,6 @@ ICT_FWD = tuple(tuple(_f32(v) for v in row) for row in (
     (0.299, 0.587, 0.114), (-0.168736, -0.331264, 0.5), (0.5, -0.418688, -0.081312)))
 ICT_INV = tuple(tuple(_f32(v) for v in row) for row in (
     (1.0, 0.0, 1.402), (1.0, -0.344136, -0.714136), (1.0, 1.772, 0.0)))
-# the longest line the horizontal halves dwt97_fwd_h and dwt97_inv_h stage in
-# shared memory
-MAX_LINE_97 = 50 * 1024
 
 
 # ============================================= K-j: DC shift + ICT
@@ -625,18 +702,20 @@ def dwt97_inv_level_plain(plane, h, w, py, px):
     plane[:h, :w] = _inv97_axis(sub, 0, py)
 
 
-def dwt97_fwd_h(plane: torch.Tensor, h: int, w: int, px: int) -> None:
-    """K-k's horizontal pass alone, in place on a float32 plane."""
-    _h_level("dwt97_fwd_h", dwt97_fwd_h_plain, plane, h, w, px, torch.float32, False)
+def dwt97_fwd_h(planes, h: int, w: int, px: int) -> None:
+    """K-k's horizontal pass alone, in place on a float32 plane (or a list,
+    as for dwt53_fwd_h; a launch a plane)."""
+    _h_half("dwt97_fwd_h", dwt97_fwd_h_plain, planes, h, w, px, torch.float32)
 
 
 def dwt97_fwd_h_plain(plane, h, w, px):
     plane[:h, :w] = _fwd97_axis(plane[:h, :w], 1, px)
 
 
-def dwt97_inv_h(plane: torch.Tensor, h: int, w: int, px: int) -> None:
-    """K-n's horizontal pass alone, in place on a float32 plane."""
-    _h_level("dwt97_inv_h", dwt97_inv_h_plain, plane, h, w, px, torch.float32, False)
+def dwt97_inv_h(planes, h: int, w: int, px: int) -> None:
+    """K-n's horizontal pass alone, in place on a float32 plane (or a list,
+    as for dwt53_fwd_h; a launch a plane)."""
+    _h_half("dwt97_inv_h", dwt97_inv_h_plain, planes, h, w, px, torch.float32)
 
 
 def dwt97_inv_h_plain(plane, h, w, px):

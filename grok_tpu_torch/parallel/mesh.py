@@ -151,6 +151,17 @@ def _each(shards, fn) -> None:
             fn(s)
 
 
+def _each_card(shards, fn) -> None:
+    """fn on the list of shards of each device, in the mesh's order: one
+    launch of a horizontal half takes every shard of a card."""
+    groups: dict[torch.device, list[torch.Tensor]] = {}
+    for s in shards:
+        groups.setdefault(s.device, []).append(s)
+    for dev, group in groups.items():
+        with on(dev):
+            fn(group)
+
+
 def _fwd_v(shards, bufs, h: int, w: int, irreversible: bool) -> None:
     """One vertical forward pass over the mesh, then the packing."""
     steps = ops.STEPS_97 if irreversible else ((False, 0.0), (True, 0.0))
@@ -188,7 +199,7 @@ def _strip_forward(shards, levels: int, irreversible: bool) -> list[torch.Tensor
     for lvl in range(levels):
         h, w = S >> lvl, W >> lvl
         _fwd_v(shards, bufs, h, w, irreversible)
-        _each(shards, lambda s: h_pass(s, h, w, 0))
+        _each_card(shards, lambda g: h_pass(g, h, w, 0))
     return shards
 
 
@@ -198,7 +209,7 @@ def _strip_inverse(shards, levels: int, irreversible: bool) -> list[torch.Tensor
     bufs = _halo_bufs(shards)
     for lvl in range(levels, 0, -1):
         h, w = S >> (lvl - 1), W >> (lvl - 1)
-        _each(shards, lambda s: h_pass(s, h, w, 0))
+        _each_card(shards, lambda g: h_pass(g, h, w, 0))
         _inv_v(shards, bufs, h, w, irreversible)
     return shards
 

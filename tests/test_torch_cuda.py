@@ -1415,21 +1415,123 @@ def test_strip_pack_kernels_equal_plain(cuda, h, w, dtype, col0):
         assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
 
 
-@pytest.mark.parametrize("h,w,px", [(1, 1, 0), (3, 9, 1), (64, 128, 0), (512, 4096, 0)])
+@pytest.mark.parametrize("h,w,px", [(1, 1, 0), (3, 9, 1), (64, 128, 0), (512, 4096, 0),
+                                    (2, 65536, 0), (2, 65536, 1)])
 def test_horizontal_halves_equal_plain(cuda, h, w, px):
+    """Each horizontal half on one plane through its wrapper (the form
+    h_form picks, counted), the 5/3 halves on 16-bit samples and on
+    samples within 8 of +-2^31 (every sum of two neighbours wraps); on four
+    planes of the card at once (one launch of a 5/3 half, one a plane of a
+    9/7 half); and in the other form through launch_h: the "scratch" form
+    at the same width, or, past MAX_LINE, the "smem" form on the first
+    MAX_LINE samples of each line."""
     rng = np.random.default_rng(h * 7 + w)
     ints = torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, (h + 1, w + 3)).astype(np.int32))
+    odd = (np.arange(h + 1)[:, None] + np.arange(w + 3)[None, :]) & 1
+    near = rng.integers(0, 8, (h + 1, w + 3))
+    wide = torch.from_numpy(np.where(odd, -(1 << 31) + near, (1 << 31) - 1 - near)
+                            .astype(np.int32))
     flts = torch.from_numpy((rng.standard_normal((h + 1, w + 3)) * 300).astype(np.float32))
-    for x, fn, plain in ((ints, tr.dwt53_fwd_h, tr.dwt53_fwd_h_plain),
-                         (ints, tr.dwt53_inv_h, tr.dwt53_inv_h_plain),
-                         (flts, tr.dwt97_fwd_h, tr.dwt97_fwd_h_plain),
-                         (flts, tr.dwt97_inv_h, tr.dwt97_inv_h_plain)):
-        ref = x.clone()
-        plain(ref, h, w, px)
-        got = x.to(cuda)
-        fn(got, h, w, px)
-        torch.cuda.synchronize()
-        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    for xs, fn, plain in (((ints, wide), tr.dwt53_fwd_h, tr.dwt53_fwd_h_plain),
+                          ((ints, wide), tr.dwt53_inv_h, tr.dwt53_inv_h_plain),
+                          ((flts,), tr.dwt97_fwd_h, tr.dwt97_fwd_h_plain),
+                          ((flts,), tr.dwt97_inv_h, tr.dwt97_inv_h_plain)):
+        k = kernels.KERNELS[fn.__name__]
+        form = tr.h_form(fn.__name__, w, h, tr.sm_count(cuda))
+        other, w_other = (("scratch", w) if form == "smem" else ("smem", tr.MAX_LINE))
+        for x in xs:
+            group = [x.roll(i, 1) for i in range(4)]
+            refs = [g.clone() for g in group]
+            for r in refs:
+                plain(r, h, w, px)
+            got = [g.to(cuda) for g in group]
+            before, before_form = k.launches, k.forms.get(form, 0)
+            fn(got[0], h, w, px)
+            torch.cuda.synchronize()
+            assert (k.launches, k.forms[form]) == (before + 1, before_form + 1)
+            assert torch.equal(got[0].cpu().view(torch.int32), refs[0].view(torch.int32))
+            got = [g.to(cuda) for g in group]
+            fn(got, h, w, px)
+            torch.cuda.synchronize()
+            assert k.launches == before + 1 + (1 if fn.__name__.startswith("dwt53") else 4)
+            for g, r in zip(got, refs):
+                assert torch.equal(g.cpu().view(torch.int32), r.view(torch.int32))
+            ref = x.clone()
+            plain(ref, h, w_other, px)
+            got = x.to(cuda)
+            tr.launch_h(fn.__name__, [got], h, w_other, px, other)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def test_strip53_rows_after_occupancy_query(cuda):
+    """The 5/3 halves' occupancy query (which chip_smoke.py makes) leaves
+    every later launch of the "smem" form possible: at 4,096 and 2,048
+    columns, and at 16,384 and 51,200 (a row past 48 KB of shared memory),
+    each equal to the plain version."""
+    import ctypes
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, (64, tr.MAX_LINE)).astype(np.int32))
+    for name in ("dwt53_fwd_h", "dwt53_inv_h"):
+        query = getattr(kernels.library(kernels.KERNELS[name].source), f"{name}_occupancy")
+        query.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
+        outs = [ctypes.c_int(0) for _ in range(4)]
+        assert query(64, 4096, *(ctypes.byref(v) for v in outs)) == 0
+        assert outs[1].value == 1 and outs[3].value >= 4  # a row a block, 4+ blocks an SM
+        for w in (4096, 2048, 16384, tr.MAX_LINE):
+            ref = x.clone()
+            getattr(tr, f"{name}_plain")(ref, 64, w, 0)
+            got = x.to(cuda)
+            tr.launch_h(name, [got], 64, w, 0, "smem")
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("irreversible", [False, True])
+def test_long_line_strip_equals_unsharded(cuda, irreversible):
+    """A 128 x 65,536 plane of DC-shifted 8-bit samples (slice_strip's
+    range) through make_sharded_strip_dwt on a virtual 4-shard mesh of the
+    card, 3 levels: level 0's lines take the horizontal halves' "scratch"
+    form, the coarser levels' the form h_form picks for their launch (a
+    launch a level of a 5/3 half, a launch a shard of a 9/7 one). The
+    bridged forward equals
+    K-b or K-k unsharded on the bits, the inverse the unsharded inverse of
+    that on the bits and the input (5/3 exactly, 9/7 within slice_strip's
+    1e-3)."""
+    from grok_tpu_torch.parallel import mesh as pm
+
+    H, W, LV = 128, 65536, 3
+    x = np.random.default_rng(11).integers(-128, 128, (H, W))
+    x = x.astype(np.float32 if irreversible else np.int32)
+    fwd, inv = gt.make_sharded_strip_dwt(gt.make_mesh(4, device=cuda), LV, irreversible)
+    gt.reset_launch_counts()
+    shards = fwd(x)
+    torch.cuda.synchronize()
+    fwd_level = tr.dwt97_fwd_level if irreversible else tr.dwt53_fwd_level
+    ref = torch.from_numpy(x).to(cuda)
+    for lvl in range(LV):
+        fwd_level(ref, H >> lvl, W >> lvl, 0, 0)
+    bridged = pm.strip_to_mallat(pm.join_rows(shards), 4, LV)
+    assert torch.equal(bridged.view(torch.int32), ref.view(torch.int32))
+    back = pm.join_rows(inv(shards)).cpu()
+    inv_level = tr.dwt97_inv_level if irreversible else tr.dwt53_inv_level
+    for lvl in range(LV, 0, -1):
+        inv_level(ref, H >> (lvl - 1), W >> (lvl - 1), 0, 0)
+    assert torch.equal(back.view(torch.int32), ref.cpu().view(torch.int32))
+    err = float((back.double() - torch.from_numpy(x).double()).abs().max())
+    assert err < 1e-3 if irreversible else err == 0
+    forms = kernels.form_counts()
+    for half in (("dwt97_fwd_h", "dwt97_inv_h") if irreversible
+                 else ("dwt53_fwd_h", "dwt53_inv_h")):
+        launches = 4 if irreversible else 1  # a level: a launch a shard, or one for the card
+        want = {}
+        for lvl in range(LV):
+            lines = tr.h_lines(half, [None] * 4, (H // 4) >> lvl)
+            form = tr.h_form(half, W >> lvl, lines, tr.sm_count(cuda))
+            want[form] = want.get(form, 0) + launches
+        assert want["scratch"] >= launches
+        assert {f: c for f, c in forms[half].items() if c} == want
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 64, 64), (3, 3, 128, 192), (8, 3, 1024, 960)])

@@ -1,7 +1,7 @@
-"""K-b's device code (csrc/dwt53.cu: ``dwt53_fwd_tile`` and the strip
-half's ``dwt53_horz``) compiled for the host and held to its plain version
-on the CPU, exactly; and the plain version held to the JAX package's
-forward 5/3 where the sums wrap.
+"""K-b's device code (csrc/dwt53.cu: ``dwt53_fwd_tile``) and the strip
+half's "scratch" form (csrc/strip53_h.cu ``dwt53_horz``) compiled for the
+host and held to their plain versions on the CPU, exactly; and the plain
+version held to the JAX package's forward 5/3 where the sums wrap.
 
 The kernel's source up to its host entry points is built by g++ against the
 shim of tests/cuda_host_shim.py (a std::thread a CUDA thread, one block
@@ -26,6 +26,7 @@ import torch
 
 from cuda_host_shim import SHIM_GLOBALS, build
 from test_torch_kg_host import _plane  # seeded int32 planes, +-2^16 or within 8 of +-2^31
+from test_torch_strip53_host import strip_lib  # the strip halves built for the host
 from grok_tpu.core.rect import Rect as RefRect
 from grok_tpu.ops import dwt as ref_dwt
 from grok_tpu_torch import kernels
@@ -63,20 +64,6 @@ extern "C" int host_fwd(const void* src, long long ld, long long src_n, void* ll
         }
     return 0;
 }
-// the strip half as dwt53_fwd_h launches it: 32 x 8 threads a block over
-// the compact copy tmp, into plane
-extern "C" int host_horz(const void* tmp, void* plane, int ld, int h, int w, int px) {
-    blockDim = {32, 8, 1};
-    for (unsigned by = 0; by < (unsigned)(h + 7) / 8; ++by)
-        for (unsigned bx = 0; bx < (unsigned)(w + 31) / 32; ++bx)
-            for (unsigned ty = 0; ty < 8; ++ty)
-                for (unsigned tx = 0; tx < 32; ++tx) {
-                    blockIdx = {bx, by, 0};
-                    threadIdx = {tx, ty, 0};
-                    dwt53_horz((const int32_t*)tmp, (int32_t*)plane, ld, h, w, px);
-                }
-    return 0;
-}
 """
 SENTINEL = -123456789
 
@@ -89,7 +76,6 @@ def host_lib(tmp_path_factory):
     lib.host_fwd.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                              ctypes.c_longlong] + [ctypes.c_int] * 4
-    lib.host_horz.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
     return lib
 
 
@@ -196,15 +182,18 @@ def test_three_levels_in_call_order(host_lib, y0, x0):
 
 @pytest.mark.parametrize("wrap", [False, True], ids=["16-bit", "near 2^31"])
 @pytest.mark.parametrize("h,w,px", [(1, 1, 1), (3, 1, 0), (5, 2, 1), (9, 37, 0), (10, 70, 1)])
-def test_strip_half_equals_plain(host_lib, h, w, px, wrap):
-    """dwt53_fwd_h's lift_out, its sums in uint32_t: each row of the
-    compact copy lifted back into the plane, as the plain version."""
+def test_strip_half_equals_plain(strip_lib, h, w, px, wrap):
+    """dwt53_fwd_h's "scratch" form, lift_out with its sums in uint32_t:
+    the plane's sub-block copied to a compact scratch and each row lifted
+    back into the plane, as the plain version."""
     plane = _plane(h * 7 + w + px, h + 1, w + 2, wrap)
     ref = plane.clone()
     tr.dwt53_fwd_h_plain(ref, h, w, px)
-    tmp = plane[:h, :w].contiguous()
     got = plane.clone()
-    assert host_lib.host_horz(tmp.data_ptr(), got.data_ptr(), got.stride(0), h, w, px) == 0
+    ptrs = np.array([got.data_ptr()], dtype=np.int64)
+    tmp = torch.empty(h * w, dtype=torch.int32)
+    assert strip_lib.host_scratch(1, ptrs.ctypes.data, 1, got.stride(0), h, w, px,
+                                  tmp.data_ptr()) == 0
     assert torch.equal(got, ref)
 
 

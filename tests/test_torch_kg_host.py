@@ -66,8 +66,8 @@ SENTINEL = -123456789
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     lib = build(tmp_path_factory.mktemp("kg_host"), (kernels.CSRC / "dwt53_inv.cu").read_text(),
-                "// ---------------------------------------------------------------- the "
-                "horizontal half", HARNESS, "kg")
+                "// ---------------------------------------------------------------- the C "
+                "entries", HARNESS, "kg")
     lib.host_inv.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                              ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 4
