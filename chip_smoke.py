@@ -65,12 +65,11 @@ line):
               image, plain on the card, and K-r and K-s with M4, with 127
               components and on views one sample off 16-byte alignment
               (mct_checks: launches and allocations a call); K-u, K-v
-              and K-b/K-g/K-k/K-n's horizontal halves on the level-0
-              sub-block of a shard of the 4096x4096 strip (the 5/3 halves
-              on the level-0 sub-blocks of the card's shards in one launch,
-              as slice_strip launches them, warm and cold, and on one
-              sub-block alone, with their launch, ptxas and the form
-              taken), K-w on
+              on the level-0 sub-block of a shard of the 4096x4096 strip,
+              K-b/K-g/K-k/K-n's horizontal halves on the level-0 sub-blocks
+              of the card's shards in one launch, as slice_strip launches
+              them, warm and cold, and on one sub-block alone, with their
+              launch, ptxas and the form taken, K-w on
               the 4K tile batch, plain on the card; all compared exactly,
               the float outputs on their bits. Kernel times (KernelTimer):
               one event pair a launch, the median, least and largest of
@@ -174,11 +173,11 @@ line):
               on the float32 bits; the bridged 5/3 coefficients through
               encode_tile_to_blob inside the port's compress stream of the
               plane; ms of forward, bridge and inverse, halo copies; K-u,
-              K-v and the horizontal halves must launch, each 5/3 half
-              once a level a card (5 a pass on one card)
+              K-v and the horizontal halves must launch, each half once a
+              level a card (5 a pass on one card)
      slice_strip_long  a 128 x 65,536 plane (LONG_STRIP), LONG_LEVELS
               levels, over the mesh: level 0's lines take the horizontal
-              halves' "scratch" form, the others the "smem" form; 9/7
+              halves' "scratch" form, the others the form h_form picks; 9/7
               equal to K-k unsharded on the float32 bits and 5/3 to K-b,
               the inverses to the unsharded K-n and K-g inverses and the
               input (9/7 within 1e-3, 5/3 exactly)
@@ -842,8 +841,8 @@ def form_choice(torch, tr, timer, same_bits, dev):
                    for form in tr.H_FORMS]
             times = timer.turns(fns)
             out.append(dict(half=name, planes=n, rows=h, width=w, equal=equal,
-                            lines_a_launch=tr.h_lines(name, x, h), sms=sms,
-                            picked=tr.h_form(name, w, tr.h_lines(name, x, h), sms),
+                            lines_a_launch=tr.h_lines(x, h), sms=sms,
+                            picked=tr.h_form(name, w, tr.h_lines(x, h), sms),
                             **{f: t["ms"] for f, t in zip(tr.H_FORMS, times)}))
             del x, refs
     emit({"phase": "check_form_choice", "launches": out})
@@ -1379,9 +1378,10 @@ def k6_phases(torch, mesh, dev, arr, x_strip, tiles8, lap):
     if any(strip_counts[k] <= 0 for k in STRIP_KERNELS):
         raise AssertionError(f"a kernel of the strip path never launched: {strip_counts}")
     per_pass = STRIP_LEVELS * len(set(mesh.devices))  # a launch a level a card
-    if (strip_counts["dwt53_fwd_h"], strip_counts["dwt53_inv_h"]) != (per_pass, per_pass):
-        raise AssertionError(f"slice_strip: the 5/3 halves launched {strip_counts} times, "
-                             f"not {per_pass} each")
+    halves = ("dwt53_fwd_h", "dwt53_inv_h", "dwt97_fwd_h", "dwt97_inv_h")
+    if any(strip_counts[k] != per_pass for k in halves):
+        raise AssertionError(f"slice_strip: the horizontal halves launched {strip_counts} "
+                             f"times, not {per_pass} each")
     got.update({k: strip_counts[k] for k in STRIP_KERNELS})
     del coeffs53, blob, strip_stream
 
@@ -1464,9 +1464,8 @@ def long_strip(torch, mesh, dev, same_bits):
             h, w = (LONG_STRIP[0] // len(mesh)) >> lvl, LONG_STRIP[1] >> lvl
             for d, n in cards.items():
                 shards = [None] * n
-                f = tr.h_form(name, w, tr.h_lines(name, shards, h), tr.sm_count(d))
-                launches = 1 if name.startswith("dwt53") else n
-                want[name][f] = want[name].get(f, 0) + launches
+                f = tr.h_form(name, w, tr.h_lines(shards, h), tr.sm_count(d))
+                want[name][f] = want[name].get(f, 0) + -(-n // tr.H_MAX_PLANES)
     emit({"phase": "slice_strip_long", "plane": "x".join(map(str, LONG_STRIP)),
           "levels": LONG_LEVELS, **res, "forms": long_forms, "forms_wanted": want})
     got_forms = {k: {f: c for f, c in long_forms.get(k, {}).items() if c} for k in want}
@@ -2304,30 +2303,29 @@ def main() -> int:
     if hasattr(k6, "launch_pack"):  # a checkout from before K-v's forms has one form
         pack_forms(torch, timer, k6, sh_i[k_sub], sh_f[k_sub], rows_of={False: perm,
                                                                    True: unperm})
-    # the 5/3 halves on the level-0 sub-blocks of the card's shards in one
-    # launch (slice_strip's launch: its launches and this time describe the
-    # same work), then on shard k_sub's alone
-    card = [s for s in sh_i if s.device == sh_i[k_sub].device]
-    for name, fn, plain in (("dwt53_fwd_h", tr.dwt53_fwd_h, tr.dwt53_fwd_h_plain),
-                            ("dwt53_inv_h", tr.dwt53_inv_h, tr.dwt53_inv_h_plain)):
+    # the horizontal halves on the level-0 sub-blocks of the card's shards in
+    # one launch (slice_strip's launch: its launches and this time describe
+    # the same work), then on shard k_sub's alone; their "smem" launch at
+    # this sub-block
+    for name, shards, ops, rate in (("dwt53_fwd_h", sh_i, 4, INT32_OPS_PER_S),
+                                    ("dwt53_inv_h", sh_i, 4, INT32_OPS_PER_S),
+                                    ("dwt97_fwd_h", sh_f, 13, FP32_OPS_PER_S),
+                                    ("dwt97_inv_h", sh_f, 13, FP32_OPS_PER_S)):
+        fn, plain = getattr(tr, name), getattr(tr, f"{name}_plain")
+        card = [s for s in shards if s.device == shards[k_sub].device]
         k6_check(name, fn, plain, card, (sub_h, sub_w, 0), 8 * sub_px * len(card),
-                 4 * sub_px * len(card), cold=True,
+                 ops * sub_px * len(card), rate, cold=True,
                  shape=f"parity 0, the level-0 sub-blocks {sub_h}x{sub_w} of the card's "
                        f"{len(card)} shards of the {STRIP}x{STRIP} strip in one launch")
         group = stats.pop(name)
-        k6_check(name, fn, plain, sh_i[k_sub], (sub_h, sub_w, 0), 8 * sub_px, 4 * sub_px,
-                 cold=True, shape=f"parity 0, {where}")
+        k6_check(name, fn, plain, shards[k_sub], (sub_h, sub_w, 0), 8 * sub_px, ops * sub_px,
+                 rate, cold=True, shape=f"parity 0, {where}")
         one = stats[name]
-        one["bound_ms"] = one["bytes"] / HBM_BYTES_PER_S * 1e3
+        one["bound_ms"] = max(one["bytes"] / HBM_BYTES_PER_S, one["ops"] / rate) * 1e3
         stats[name] = dict(group, one_plane={k: one[k] for k in (
             "ms", "ms_min", "ms_max", "cold_ms", "cold_ms_min", "cold_ms_max", "bytes",
             "bound_ms", "max_abs_err")})
         stats[name]["max_abs_err"] |= one["max_abs_err"]
-    for name, fn, plain in (("dwt97_fwd_h", tr.dwt97_fwd_h, tr.dwt97_fwd_h_plain),
-                            ("dwt97_inv_h", tr.dwt97_inv_h, tr.dwt97_inv_h_plain)):
-        k6_check(name, fn, plain, sh_f[k_sub], (sub_h, sub_w, 0), 8 * sub_px, 13 * sub_px,
-                 FP32_OPS_PER_S, shape=f"parity 0, {where}")
-    for name in ("dwt53_fwd_h", "dwt53_inv_h"):  # the "smem" form's launch at this sub-block
         src = kernels.KERNELS[name].source
         threads, rows, smem, blocks = c_ints(kernels, src, f"{name}_occupancy", sub_h, sub_w,
                                              outs=4)

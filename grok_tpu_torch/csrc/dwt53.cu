@@ -45,7 +45,7 @@
 // (transform.fwd_ping_pong runs the levels).
 //
 // The horizontal half alone (dwt53_fwd_h, the sharded strip wavelet) lives
-// in strip53_h.cu.
+// in strip_h.cu.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>

@@ -40,7 +40,7 @@
 // (transform.inv_ping_pong runs the levels).
 //
 // The horizontal half alone (dwt53_inv_h, the sharded strip wavelet) lives
-// in strip53_h.cu.
+// in strip_h.cu.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>

@@ -81,19 +81,8 @@
 // quadrant (the coarser level's output) and the rest of the packed plane as
 // two sources and a destination that overlaps neither.
 //
-// The horizontal halves dwt97_fwd_h / dwt97_inv_h (the sharded strip
-// wavelet) have two forms, picked by the line length and the lines a launch
-// (transform.h_form) and each counted in Kernel.forms. "smem" (lines of up
-// to 51,200 samples, a block a line): dwt97_lines stages whole lines in shared memory, deinterleaved into their
-// low-pass half s [0, sn) and high-pass half d [sn, n), and runs the four
-// lifting steps over them with __syncthreads() between steps, the clamps
-// written out; a block owns its rows, so they work in place. "scratch"
-// (longer lines, or a few long ones): the same steps through a compact h x n scratch, one
-// launch each (scratch_lines): the lines deinterleaved into it, each lifting
-// step over all of it, then the scaled result back into the plane (the
-// inverse: the scaled packed lines in, the steps in reverse, interleaved
-// back). Both forms do lift_step's operations on the same values, so they
-// agree bit for bit.
+// The strip wavelet's horizontal halves of both, dwt97_fwd_h and
+// dwt97_inv_h, are in strip_h.cu.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -106,83 +95,6 @@
 #define D97 ((float)0.443506852043971)
 #define K97 ((float)1.230174104914001)
 #define IK97 ((float)(1.0 / 1.230174104914001))
-
-// dynamic shared memory a block of the horizontal halves may use: a line of
-// at most 51200 samples (transform.MAX_LINE); a longer one takes the
-// "scratch" form
-static const int kMaxSmem = 200 * 1024;
-
-// x + c (a + b), or x - c (a + b) when sub, each operation rounded on its own
-__device__ __forceinline__ float lifted(float x, float a, float b, float c, bool sub) {
-    const float p = __fmul_rn(c, __fadd_rn(a, b));
-    return sub ? __fsub_rn(x, p) : __fadd_rn(x, p);
-}
-
-// one lifting step over a group of lines staged as buf[k * G + g]:
-// tgt[t] += sign * c * (src[l] + src[r]) for every t of the target phase
-// (nt samples at offset to) from the source phase (ns samples at offset so);
-// the neighbours are src[t + lo] and src[t + hi], clamped into [0, ns)
-__device__ __forceinline__ void lift_step(float* buf, int G, int to, int nt, int so,
-                                          int ns, int lo, int hi, float c, bool sub) {
-    for (int idx = threadIdx.x; idx < nt * G; idx += blockDim.x) {
-        const int t = idx / G, g = idx - t * G;
-        const int l = min(max(t + lo, 0), ns - 1), r = min(max(t + hi, 0), ns - 1);
-        float& x = buf[(to + t) * G + g];
-        x = lifted(x, buf[(so + l) * G + g], buf[(so + r) * G + g], c, sub);
-    }
-    __syncthreads();
-}
-
-// neighbour offsets, T.800's symmetric extension as a clamp: a d sample's s
-// neighbours are (j, j + 1) for parity 0 and (j - 1, j) for parity 1; an s
-// sample's d neighbours are (i - 1, i) for parity 0 and (i, i + 1) for parity 1
-template <bool FWD>
-__global__ void dwt97_lines(float* plane, int n, int nlines, int G,
-                            int64_t elem_step, int64_t line_step, int par) {
-    extern __shared__ float buf[];
-    const int line0 = blockIdx.x * G;
-    const int g_here = min(G, nlines - line0);
-    float* base = plane + (int64_t)line0 * line_step;
-    const int sn = par ? n / 2 : (n + 1) / 2, dn = n - sn;
-    // load: forward deinterleaves (natural -> [s | d]); inverse reads packed
-    for (int idx = threadIdx.x; idx < n * G; idx += blockDim.x) {
-        const int p = idx / G, g = idx - p * G;
-        if (g >= g_here) continue;
-        const float v = base[g * line_step + p * elem_step];
-        const int k = FWD ? (((p & 1) == par) ? (p >> 1) : sn + (p >> 1)) : p;
-        buf[k * G + g] = v;
-    }
-    __syncthreads();
-    const int d_lo = par ? -1 : 0, d_hi = par ? 0 : 1;   // d's s neighbours
-    const int s_lo = par ? 0 : -1, s_hi = par ? 1 : 0;   // s's d neighbours
-    if (FWD) {
-        lift_step(buf, G, sn, dn, 0, sn, d_lo, d_hi, A97, false);
-        lift_step(buf, G, 0, sn, sn, dn, s_lo, s_hi, B97, false);
-        lift_step(buf, G, sn, dn, 0, sn, d_lo, d_hi, G97, false);
-        lift_step(buf, G, 0, sn, sn, dn, s_lo, s_hi, D97, false);
-        for (int idx = threadIdx.x; idx < n * G; idx += blockDim.x) {
-            const int k = idx / G, g = idx - k * G;
-            if (g >= g_here) continue;
-            base[g * line_step + k * elem_step] = __fmul_rn(buf[idx], k < sn ? IK97 : K97);
-        }
-    } else {
-        for (int idx = threadIdx.x; idx < n * G; idx += blockDim.x) {
-            const int k = idx / G;
-            buf[idx] = __fmul_rn(buf[idx], k < sn ? K97 : IK97);
-        }
-        __syncthreads();
-        lift_step(buf, G, 0, sn, sn, dn, s_lo, s_hi, D97, true);
-        lift_step(buf, G, sn, dn, 0, sn, d_lo, d_hi, G97, true);
-        lift_step(buf, G, 0, sn, sn, dn, s_lo, s_hi, B97, true);
-        lift_step(buf, G, sn, dn, 0, sn, d_lo, d_hi, A97, true);
-        for (int idx = threadIdx.x; idx < n * G; idx += blockDim.x) {
-            const int p = idx / G, g = idx - p * G;
-            if (g >= g_here) continue;
-            const int k = ((p & 1) == par) ? (p >> 1) : sn + (p >> 1);
-            base[g * line_step + p * elem_step] = buf[k * G + g];
-        }
-    }
-}
 
 // ---------------------------------------------------------------- K-n
 // One inverse level in one launch, out of place: a block makes a TH x TW
@@ -395,91 +307,7 @@ dwt97_fwd_tile(const float* __restrict__ src, int64_t ld, float* __restrict__ ll
     }
 }
 
-// ---------------------------------------------------------------- the "scratch" form
-// The horizontal halves on lines too long for shared memory, through tmp:
-// h lines of n samples, each [s | d], compact. Each kernel takes an item a
-// thread (a 1-d grid over h * n or h * nt items).
-
-// forward: tmp = the natural-order lines of plane (row stride ld),
-// deinterleaved; inverse: tmp = the packed lines, s * K and d / K
-template <bool FWD>
-__global__ void dwt97_scratch_in(const float* __restrict__ plane, float* __restrict__ tmp,
-                                 int64_t ld, int h, int n, int par) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (int64_t)h * n) return;
-    const int64_t y = i / n;
-    const int k = (int)(i - y * n), sn = par ? n / 2 : (n + 1) / 2;
-    if (FWD)
-        tmp[i] = plane[y * ld + (k < sn ? 2 * k + par : 2 * (k - sn) + 1 - par)];
-    else
-        tmp[i] = __fmul_rn(plane[y * ld + k], k < sn ? K97 : IK97);
-}
-
-// lift_step on every line of tmp: target phase nt samples at to, source
-// phase ns at so, neighbours t + lo and t + hi clamped into [0, ns)
-__global__ void dwt97_scratch_step(float* __restrict__ tmp, int h, int n, int to, int nt,
-                                   int so, int ns, int lo, int hi, float c, bool sub) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (int64_t)h * nt) return;
-    const int64_t y = i / nt;
-    const int t = (int)(i - y * nt);
-    float* line = tmp + y * n;
-    const int l = min(max(t + lo, 0), ns - 1), r = min(max(t + hi, 0), ns - 1);
-    line[to + t] = lifted(line[to + t], line[so + l], line[so + r], c, sub);
-}
-
-// forward: plane's lines = tmp's, s / K and d * K; inverse: plane's lines
-// = tmp's interleaved into natural order
-template <bool FWD>
-__global__ void dwt97_scratch_out(const float* __restrict__ tmp, float* __restrict__ plane,
-                                  int64_t ld, int h, int n, int par) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (int64_t)h * n) return;
-    const int64_t y = i / n;
-    const int k = (int)(i - y * n), sn = par ? n / 2 : (n + 1) / 2;
-    if (FWD)
-        plane[y * ld + k] = __fmul_rn(tmp[i], k < sn ? IK97 : K97);
-    else
-        plane[y * ld + k] = tmp[y * n + ((k & 1) == par ? k >> 1 : sn + (k >> 1))];
-}
-
-// The "scratch" form's launches in order, each through launch(kernel, items,
-// arguments...), which runs kernel over a 1-d grid of at least items threads.
-template <bool FWD, class Launch>
-static int scratch_lines(const Launch& launch, float* plane, float* tmp, int64_t ld, int h,
-                         int n, int par) {
-    if (n <= 1 || h <= 0) return 0;  // a lone sample stays as it is
-    const int sn = par ? n / 2 : (n + 1) / 2, dn = n - sn;
-    const int d_lo = par ? -1 : 0, d_hi = par ? 0 : 1;  // d's s neighbours
-    const int s_lo = par ? 0 : -1, s_hi = par ? 1 : 0;  // s's d neighbours
-    auto step = [&](bool to_d, float c) {  // the d phase from s, or the s phase from d
-        return to_d ? launch(dwt97_scratch_step, (int64_t)h * dn, tmp, h, n, sn, dn, 0, sn, d_lo,
-                             d_hi, c, !FWD)
-                    : launch(dwt97_scratch_step, (int64_t)h * sn, tmp, h, n, 0, sn, sn, dn, s_lo,
-                             s_hi, c, !FWD);
-    };
-    int rc = launch(dwt97_scratch_in<FWD>, (int64_t)h * n, plane, tmp, ld, h, n, par);
-    const bool to_d[4] = {FWD, !FWD, FWD, !FWD};  // forward A, B, G, D; inverse D, G, B, A
-    const float coef[4] = {FWD ? A97 : D97, FWD ? B97 : G97, FWD ? G97 : B97, FWD ? D97 : A97};
-    for (int k = 0; k < 4 && !rc; ++k) rc = step(to_d[k], coef[k]);
-    if (!rc) rc = launch(dwt97_scratch_out<FWD>, (int64_t)h * n, tmp, plane, ld, h, n, par);
-    return rc;
-}
-
-// lines of n samples, line_step apart: the rows of the horizontal halves, a
-// block a row
-template <bool FWD>
-static int run_lines(float* plane, int n, int nlines, int64_t line_step, int par,
-                     cudaStream_t st) {
-    if (n <= 1 || nlines <= 0) return 0;  // a lone sample stays as it is
-    if ((int64_t)n * 4 > kMaxSmem) return (int)cudaErrorInvalidValue;
-    int rc = (int)cudaFuncSetAttribute(dwt97_lines<FWD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (rc) return rc;
-    dwt97_lines<FWD><<<nlines, 256, (size_t)n * 4, st>>>(plane, n, nlines, 1, 1, line_step, par);
-    return (int)cudaGetLastError();
-}
-
+// ---------------------------------------------------------------- the C entries
 // a K-k tile's threads and shared bytes, and its blocks resident on one SM
 extern "C" int dwt97_fwd_occupancy(int* threads, int* smem, int* blocks) {
     *threads = FWD_THREADS;
@@ -520,35 +348,4 @@ extern "C" int dwt97_inv_level(const void* ll, int64_t ld_ll, const void* src, i
     dwt97_inv_tile<<<grid, INV_THREADS, TR * TP * sizeof(float), (cudaStream_t)stream>>>(
         (const float*)ll, ld_ll, (const float*)src, ld, (float*)dst, ld_dst, h, w, py, px);
     return (int)cudaGetLastError();
-}
-
-// a launch of the "scratch" form on the card: 256 threads a block
-struct CudaLaunch {
-    cudaStream_t st;
-    template <class... P, class... A>
-    int operator()(void (*kernel)(P...), int64_t items, A... args) const {
-        kernel<<<(unsigned)((items + 255) / 256), 256, 0, st>>>(args...);
-        return (int)cudaGetLastError();
-    }
-};
-
-// The horizontal halves alone (K6's _fwd97_h_local and _inv97_h_local,
-// grok_tpu/parallel/mesh.py:207, :229, with the origin parity px), in place
-// on the h x w sub-block of plane (row stride ld): the "smem" form where tmp
-// is null (lines of up to 51,200 samples), else the "scratch" form through
-// tmp (h * w floats).
-extern "C" int dwt97_fwd_h(void* plane, void* tmp, int ld, int h, int w, int px, void* stream) {
-    if (h <= 0 || w <= 0) return 0;
-    if (tmp != nullptr)
-        return scratch_lines<true>(CudaLaunch{(cudaStream_t)stream}, (float*)plane, (float*)tmp,
-                                   ld, h, w, px);
-    return run_lines<true>((float*)plane, w, h, ld, px, (cudaStream_t)stream);
-}
-
-extern "C" int dwt97_inv_h(void* plane, void* tmp, int ld, int h, int w, int px, void* stream) {
-    if (h <= 0 || w <= 0) return 0;
-    if (tmp != nullptr)
-        return scratch_lines<false>(CudaLaunch{(cudaStream_t)stream}, (float*)plane, (float*)tmp,
-                                    ld, h, w, px);
-    return run_lines<false>((float*)plane, w, h, ld, px, (cudaStream_t)stream);
 }

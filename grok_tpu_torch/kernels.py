@@ -19,8 +19,8 @@ the library, and nowhere else (``launch_counts``/``reset_launch_counts``);
 a kernel with several forms (K-v, the four horizontal halves of the strip
 wavelet) also counts the launches of each form (``form_counts``). A count
 is one call of the C entry, not one device launch: a "scratch" form of a
-horizontal half is one call that issues several (the 9/7 one six kernels,
-the 5/3 one a 2-D copy a plane and one kernel).
+horizontal half is one call that issues several (the 9/7 one six kernels a
+plane, the 5/3 one a 2-D copy a plane and one kernel).
 """
 
 from __future__ import annotations
@@ -167,18 +167,18 @@ KERNELS: dict[str, Kernel] = {
                "grok_tpu/parallel/mesh.py:96-98, :112-114, :181-183, :201-203 (K6: the "
                "unpacking, 9/7 scaling and interleave of the sharded inverse)",
                (_P, _P, _I64, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
-        Kernel("dwt53_fwd_h", "strip53_h.cu",
+        Kernel("dwt53_fwd_h", "strip_h.cu",
                "grok_tpu/parallel/mesh.py:118 (K6: _fwd53_h_local)",
-               (_P, _I32, _I64, _I32, _I32, _I32, _P, _P)),
-        Kernel("dwt53_inv_h", "strip53_h.cu",
+               (_P, _I32, _I64, _I32, _I32, _I32, _P, _P), FLOAT_FLAGS),
+        Kernel("dwt53_inv_h", "strip_h.cu",
                "grok_tpu/parallel/mesh.py:130 (K6: _inv53_h_local)",
-               (_P, _I32, _I64, _I32, _I32, _I32, _P, _P)),
-        Kernel("dwt97_fwd_h", "dwt97.cu",
+               (_P, _I32, _I64, _I32, _I32, _I32, _P, _P), FLOAT_FLAGS),
+        Kernel("dwt97_fwd_h", "strip_h.cu",
                "grok_tpu/parallel/mesh.py:207 (K6: _fwd97_h_local)",
-               (_P, _P, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
-        Kernel("dwt97_inv_h", "dwt97.cu",
+               (_P, _I32, _I64, _I32, _I32, _I32, _P, _P), FLOAT_FLAGS),
+        Kernel("dwt97_inv_h", "strip_h.cu",
                "grok_tpu/parallel/mesh.py:229 (K6: _inv97_h_local)",
-               (_P, _P, _I32, _I32, _I32, _I32, _P), FLOAT_FLAGS),
+               (_P, _I32, _I64, _I32, _I32, _I32, _P, _P), FLOAT_FLAGS),
         Kernel("blk_stats", "blk_stats.cu",
                "grok_tpu/parallel/mesh.py:475-480 (K6: make_sharded_transform's blk_max and "
                "its psum of distortion)",

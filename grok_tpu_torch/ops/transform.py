@@ -165,21 +165,23 @@ def dwt53_fwd_level_plain(plane, h, w, py, px):
 # ============================================= the horizontal halves alone
 # The strip wavelet's horizontal passes (grok_tpu_torch/parallel/mesh.py):
 # K-b's and K-g's here, K-k's and K-n's (dwt97_fwd_h, dwt97_inv_h) below.
-# Each has two forms, counted apart in kernels.form_counts(): "smem" stages
-# whole lines in shared memory and works in place, up to MAX_LINE samples
-# (csrc/strip53_h.cu H_MAX_LINE, csrc/dwt97.cu kMaxSmem);
-# "scratch" takes a line of any length through a compact scratch. The line
-# length and the lines a launch pick the form (h_form).
+# All four live in csrc/strip_h.cu. Each has two forms, counted apart in
+# kernels.form_counts(): "smem" stages whole lines in shared memory and works
+# in place, up to MAX_LINE samples (H_MAX_LINE); "scratch" takes a line of
+# any length through a compact scratch. The line length and the lines a
+# launch pick the form (h_form). A launch takes up to H_MAX_PLANES planes.
 MAX_LINE = 50 * 1024
 SHORT_LINE = 4096  # the longest line a "smem" block of either half lifts as one of several
 # A launch of lines past SHORT_LINE takes "scratch" when they number fewer
 # than the card's SMs over FEW_LINES_DIV: a "smem" block lifts such a line
-# alone (about 2.1 ns a sample in a 9/7 block, 0.4 in a 5/3 one, on an
-# H100), so a few lines leave SMs idle (chip_smoke.py check_form_choice
-# times both forms on such launches).
-FEW_LINES_DIV = {"dwt53": 5, "dwt97": 1}
+# alone (about 0.4 ns a sample in a block of either half, on an H100), so
+# a few lines leave SMs idle. The 9/7 "scratch" form costs six
+# launches, so it won only on 2 lines of 51,200 samples, and "smem" from 8
+# lines of 16,384 up (chip_smoke.py check_form_choice times both forms on
+# such launches).
+FEW_LINES_DIV = {"dwt53": 5, "dwt97": 33}
 H_FORMS = ("smem", "scratch")
-H_MAX_PLANES = 8  # planes a launch of a 5/3 half (csrc/strip53_h.cu H_PLANES)
+H_MAX_PLANES = 8  # planes a launch of a horizontal half (csrc/strip_h.cu H_PLANES)
 
 
 def h_form(name: str, w: int, lines: int, sms: int) -> str:
@@ -199,11 +201,10 @@ def sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def h_lines(name: str, planes: list, h: int) -> int:
-    """The lines of one launch of horizontal half ``name`` over ``planes``
-    (h rows each): a 5/3 half launches for up to H_MAX_PLANES planes at
-    once, a 9/7 half once a plane."""
-    return h * (min(len(planes), H_MAX_PLANES) if name.startswith("dwt53") else 1)
+def h_lines(planes: list, h: int) -> int:
+    """The lines of one launch of a horizontal half over ``planes`` (h rows
+    each): a launch takes up to H_MAX_PLANES planes at once."""
+    return h * min(len(planes), H_MAX_PLANES)
 
 
 def _h_planes(planes, dtype, h: int, w: int) -> list[torch.Tensor]:
@@ -229,7 +230,7 @@ def _h_half(name: str, plain, planes, h: int, w: int, px: int, dtype) -> None:
         for p in planes:
             plain(p, h, w, px)
         return
-    form = h_form(name, w, h_lines(name, planes, h), sm_count(planes[0].device))
+    form = h_form(name, w, h_lines(planes, h), sm_count(planes[0].device))
     launch_h(name, planes, h, w, px, form)
 
 
@@ -237,30 +238,22 @@ def launch_h(name: str, planes: list[torch.Tensor], h: int, w: int, px: int,
              form: str) -> None:
     """Horizontal half ``name`` (dwt53_fwd_h, dwt53_inv_h, dwt97_fwd_h or
     dwt97_inv_h) in ``form`` on CUDA planes of one shape, in place on the
-    top-left h x w of each: a 5/3 half one launch for up to H_MAX_PLANES
-    planes, a 9/7 half one launch a plane. "scratch" takes any length (it
-    allocates h * w samples a plane); "smem" past MAX_LINE raises."""
+    top-left h x w of each, one launch for up to H_MAX_PLANES planes.
+    "scratch" takes any length (it allocates h * w samples a plane); "smem"
+    past MAX_LINE raises."""
     if form not in H_FORMS:
         raise ValueError(f"{name}: no form {form!r}")
     k = kernels.KERNELS[name]
     dev, dtype, ld = planes[0].device, planes[0].dtype, planes[0].stride(0)
     stream = kernels.stream_ptr(dev)
 
-    def scratch(n: int):
-        return torch.empty(n * h * w, dtype=dtype, device=dev) if form == "scratch" else None
-
-    if name.startswith("dwt53"):
-        for i in range(0, len(planes), H_MAX_PLANES):
-            group = planes[i:i + H_MAX_PLANES]
-            ptrs = np.array([p.data_ptr() for p in group], dtype=np.int64)
-            tmp = scratch(len(group))
-            k.call(ptrs.ctypes.data, len(group), ld, h, w, px,
-                   None if tmp is None else tmp.data_ptr(), stream, form=form)
-    else:
-        for p in planes:
-            tmp = scratch(1)
-            k.call(p.data_ptr(), None if tmp is None else tmp.data_ptr(), ld, h, w, px, stream,
-                   form=form)
+    for i in range(0, len(planes), H_MAX_PLANES):
+        group = planes[i:i + H_MAX_PLANES]
+        ptrs = np.array([p.data_ptr() for p in group], dtype=np.int64)
+        tmp = (torch.empty(len(group) * h * w, dtype=dtype, device=dev) if form == "scratch"
+               else None)
+        k.call(ptrs.ctypes.data, len(group), ld, h, w, px,
+               None if tmp is None else tmp.data_ptr(), stream, form=form)
 
 
 def dwt53_fwd_h(planes, h: int, w: int, px: int) -> None:
@@ -704,7 +697,7 @@ def dwt97_inv_level_plain(plane, h, w, py, px):
 
 def dwt97_fwd_h(planes, h: int, w: int, px: int) -> None:
     """K-k's horizontal pass alone, in place on a float32 plane (or a list,
-    as for dwt53_fwd_h; a launch a plane)."""
+    as for dwt53_fwd_h: on a card, one launch for up to H_MAX_PLANES)."""
     _h_half("dwt97_fwd_h", dwt97_fwd_h_plain, planes, h, w, px, torch.float32)
 
 
@@ -714,7 +707,7 @@ def dwt97_fwd_h_plain(plane, h, w, px):
 
 def dwt97_inv_h(planes, h: int, w: int, px: int) -> None:
     """K-n's horizontal pass alone, in place on a float32 plane (or a list,
-    as for dwt53_fwd_h; a launch a plane)."""
+    as for dwt53_fwd_h: on a card, one launch for up to H_MAX_PLANES)."""
     _h_half("dwt97_inv_h", dwt97_inv_h_plain, planes, h, w, px, torch.float32)
 
 

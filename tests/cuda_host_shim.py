@@ -9,7 +9,8 @@ exchange array (any type of up to 8 bytes), shared-memory atomics are host
 atomics, the float and double intrinsics are the host's IEEE operations
 (built without contraction; __fmaf_rn is the C library's fmaf, which
 rounds once), a cp.async (__pipeline_memcpy_async) is a
-copy at once, and every __ldg, cp.async source
+copy at once (a source or destination not aligned to the copy's size
+aborts, as the card refuses it), and every __ldg, cp.async source
 and global atomicAdd is checked against the buffers of the launch (an
 access outside them aborts). A test's harness defines the launch. What this
 cannot show: timing, occupancy, and anything nvcc compiles differently
@@ -43,6 +44,7 @@ SHIM = r"""
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3_ { unsigned x, y, z; };
 struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 struct int2 { int x, y; };
@@ -73,6 +75,8 @@ inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }  // rounds once
+inline unsigned __float_as_uint(float v) { unsigned u; memcpy(&u, &v, 4); return u; }
+inline float __uint_as_float(unsigned u) { float v; memcpy(&v, &u, 4); return v; }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
 inline unsigned __brev(unsigned x) {
@@ -95,6 +99,10 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 // cp.async: a checked copy at once; the commit and the wait have nothing to do
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+    if (((uintptr_t)dst | (uintptr_t)src) % n) {
+        fprintf(stderr, "cp.async of %zu bytes off alignment: %p to %p\n", n, src, dst);
+        abort();
+    }
     chk(src, n);
     memcpy(dst, src, n);
 }

@@ -1421,8 +1421,8 @@ def test_horizontal_halves_equal_plain(cuda, h, w, px):
     """Each horizontal half on one plane through its wrapper (the form
     h_form picks, counted), the 5/3 halves on 16-bit samples and on
     samples within 8 of +-2^31 (every sum of two neighbours wraps); on four
-    planes of the card at once (one launch of a 5/3 half, one a plane of a
-    9/7 half); and in the other form through launch_h: the "scratch" form
+    planes of the card at once (one launch of each half); and in the other
+    form through launch_h: the "scratch" form
     at the same width, or, past MAX_LINE, the "smem" form on the first
     MAX_LINE samples of each line."""
     rng = np.random.default_rng(h * 7 + w)
@@ -1453,7 +1453,7 @@ def test_horizontal_halves_equal_plain(cuda, h, w, px):
             got = [g.to(cuda) for g in group]
             fn(got, h, w, px)
             torch.cuda.synchronize()
-            assert k.launches == before + 1 + (1 if fn.__name__.startswith("dwt53") else 4)
+            assert k.launches == before + 2
             for g, r in zip(got, refs):
                 assert torch.equal(g.cpu().view(torch.int32), r.view(torch.int32))
             ref = x.clone()
@@ -1464,16 +1464,14 @@ def test_horizontal_halves_equal_plain(cuda, h, w, px):
             assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
 
 
-def test_strip53_rows_after_occupancy_query(cuda):
-    """The 5/3 halves' occupancy query (which chip_smoke.py makes) leaves
-    every later launch of the "smem" form possible: at 4,096 and 2,048
-    columns, and at 16,384 and 51,200 (a row past 48 KB of shared memory),
-    each equal to the plain version."""
+def _rows_after_occupancy_query(cuda, names, x):
+    """Each half's occupancy query (which chip_smoke.py makes) leaves every
+    later launch of the "smem" form possible: at 4,096 and 2,048 columns,
+    and at 16,384 and 51,200 (a row past 48 KB of shared memory), each
+    equal to the plain version on the bits."""
     import ctypes
 
-    rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, (64, tr.MAX_LINE)).astype(np.int32))
-    for name in ("dwt53_fwd_h", "dwt53_inv_h"):
+    for name in names:
         query = getattr(kernels.library(kernels.KERNELS[name].source), f"{name}_occupancy")
         query.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
         outs = [ctypes.c_int(0) for _ in range(4)]
@@ -1485,7 +1483,21 @@ def test_strip53_rows_after_occupancy_query(cuda):
             got = x.to(cuda)
             tr.launch_h(name, [got], 64, w, 0, "smem")
             torch.cuda.synchronize()
-            assert torch.equal(got.cpu(), ref)
+            assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def test_strip53_rows_after_occupancy_query(cuda):
+    """The 5/3 halves after their occupancy queries (_rows_after_occupancy_query)."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-(1 << 16), 1 << 16, (64, tr.MAX_LINE)).astype(np.int32))
+    _rows_after_occupancy_query(cuda, ("dwt53_fwd_h", "dwt53_inv_h"), x)
+
+
+def test_strip97_rows_after_occupancy_query(cuda):
+    """The 9/7 halves after their occupancy queries (_rows_after_occupancy_query)."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy((rng.standard_normal((64, tr.MAX_LINE)) * 300).astype(np.float32))
+    _rows_after_occupancy_query(cuda, ("dwt97_fwd_h", "dwt97_inv_h"), x)
 
 
 @pytest.mark.parametrize("irreversible", [False, True])
@@ -1494,8 +1506,8 @@ def test_long_line_strip_equals_unsharded(cuda, irreversible):
     range) through make_sharded_strip_dwt on a virtual 4-shard mesh of the
     card, 3 levels: level 0's lines take the horizontal halves' "scratch"
     form, the coarser levels' the form h_form picks for their launch (a
-    launch a level of a 5/3 half, a launch a shard of a 9/7 one). The
-    bridged forward equals
+    launch a level of each half for the card's four shards). The bridged
+    forward equals
     K-b or K-k unsharded on the bits, the inverse the unsharded inverse of
     that on the bits and the input (5/3 exactly, 9/7 within slice_strip's
     1e-3)."""
@@ -1524,13 +1536,12 @@ def test_long_line_strip_equals_unsharded(cuda, irreversible):
     forms = kernels.form_counts()
     for half in (("dwt97_fwd_h", "dwt97_inv_h") if irreversible
                  else ("dwt53_fwd_h", "dwt53_inv_h")):
-        launches = 4 if irreversible else 1  # a level: a launch a shard, or one for the card
-        want = {}
+        want = {}  # a launch a level for the card's four shards
         for lvl in range(LV):
-            lines = tr.h_lines(half, [None] * 4, (H // 4) >> lvl)
+            lines = tr.h_lines([None] * 4, (H // 4) >> lvl)
             form = tr.h_form(half, W >> lvl, lines, tr.sm_count(cuda))
-            want[form] = want.get(form, 0) + launches
-        assert want["scratch"] >= launches
+            want[form] = want.get(form, 0) + 1
+        assert want["scratch"] >= 1
         assert {f: c for f, c in forms[half].items() if c} == want
 
 

@@ -64,7 +64,8 @@ SENTINEL = -12345.5
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     lib = build(tmp_path_factory.mktemp("kk_host"), (kernels.CSRC / "dwt97.cu").read_text(),
-                "// lines of n samples", HARNESS, "kk")
+                "// ---------------------------------------------------------------- the C "
+                "entries", HARNESS, "kk")
     lib.host_fwd.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                              ctypes.c_longlong] + [ctypes.c_int] * 4

@@ -29,8 +29,6 @@ from grok_tpu_torch.ops import transform as tr
 HARNESS = r"""
 #include "shim.h"
 #define __grid_constant__
-inline float __uint_as_float(uint32_t x) { float f; memcpy(&f, &x, 4); return f; }
-inline uint32_t __float_as_uint(float f) { uint32_t x; memcpy(&x, &f, 4); return x; }
 inline float __int2float_rn(int x) { return (float)x; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 // a 16-byte load on the card faults unless its address is a multiple of 16

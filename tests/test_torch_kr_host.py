@@ -33,7 +33,6 @@ HARNESS = r"""
 #include "shim.h"
 #define __grid_constant__
 dim3_ gridDim;
-inline uint32_t __float_as_uint(float f) { uint32_t x; memcpy(&x, &f, 4); return x; }
 inline float __int_as_float(int32_t x) { float f; memcpy(&f, &x, 4); return f; }
 // a 16-byte access on the card faults unless its address is a multiple of 16
 inline void aligned16(const void* p) {

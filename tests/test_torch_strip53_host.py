@@ -1,4 +1,4 @@
-"""The 5/3 strip halves' device code (csrc/strip53_h.cu: the "smem" form's
+"""The 5/3 strip halves' device code (csrc/strip_h.cu: the "smem" form's
 ``dwt53_fwd_rows`` and ``dwt53_inv_rows``, the "scratch" form's
 ``dwt53_horz`` and ``dwt53_inv_horz``) and their launch parameters
 (``make_args``) compiled for the host and held exactly to the plain
@@ -41,8 +41,9 @@ HARNESS = r"""
 #define __grid_constant__
 #include "kernel.inc"
 """ + SHIM_GLOBALS + r"""alignas(16) int32_t s_rows[H_MAX_LINE + 8];  // rows * pitch words at most
-// the "smem" form as the C entries launch it; returns the rows a block
-extern "C" int host_rows(int fwd, const int64_t* planes, int n, long long ld, int h, int w,
+// the "smem" form of half 0 .. 3 (dwt53_fwd_h, dwt53_inv_h, dwt97_fwd_h,
+// dwt97_inv_h) as the C entries launch it; returns the rows a block
+extern "C" int host_rows(int half, const int64_t* planes, int n, long long ld, int h, int w,
                          int px, const int64_t* ranges, int nr) {
     HArgs a;
     if (!make_args(a, planes, n, ld, h, w, px) || w > H_MAX_LINE) return -1;
@@ -64,7 +65,12 @@ extern "C" int host_rows(int fwd, const int64_t* planes, int n, long long ld, in
                 blockIdx = {(unsigned)b, 0, 0};
                 t_warp = &wb[t / 32];
                 t_exch = &ex[t / 32];
-                if (fwd) dwt53_fwd_rows(a); else dwt53_inv_rows(a);
+                switch (half) {
+                    case 0: dwt53_fwd_rows(a); break;
+                    case 1: dwt53_inv_rows(a); break;
+                    case 2: dwt97_rows<true>(a); break;
+                    default: dwt97_rows<false>(a);
+                }
             });
         for (auto& x : th) x.join();
     }
@@ -99,12 +105,14 @@ extern "C" int host_scratch(int fwd, const int64_t* planes, int n, long long ld,
 }
 """
 SENTINEL = -123456789
-PLAIN = {"fwd": tr.dwt53_fwd_h_plain, "inv": tr.dwt53_inv_h_plain}
+# each half: its index in host_rows and its plain version
+HALVES = {"fwd": (0, tr.dwt53_fwd_h_plain), "inv": (1, tr.dwt53_inv_h_plain),
+          "fwd97": (2, tr.dwt97_fwd_h_plain), "inv97": (3, tr.dwt97_inv_h_plain)}
 
 
 @pytest.fixture(scope="module")
 def strip_lib(tmp_path_factory):
-    lib = build(tmp_path_factory.mktemp("strip53"), (kernels.CSRC / "strip53_h.cu").read_text(),
+    lib = build(tmp_path_factory.mktemp("strip53"), (kernels.CSRC / "strip_h.cu").read_text(),
                 "// ---------------------------------------------------------------- the C "
                 "entries", HARNESS, "strip53")
     lib.host_rows.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + \
@@ -127,24 +135,25 @@ def _bufs(seed, n, h, w, ld, col0, wrap):
 
 def _run(lib, half, form, bufs, h, w, px, col0):
     """The half in ``form`` over the buffers' sub-blocks in one launch, then each
-    buffer against the plain version of its copy, border included; returns
-    the rows a block of the "smem" form."""
-    ld, fwd = bufs[0].shape[1], int(half == "fwd")
+    buffer against the plain version of its copy on the bits, border
+    included; returns the rows a block of the "smem" form."""
+    ld, (index, plain) = bufs[0].shape[1], HALVES[half]
     refs = [b.clone() for b in bufs]
     for r in refs:
-        PLAIN[half](r[1:, col0:], h, w, px)
+        plain(r[1:, col0:], h, w, px)
     ptrs = np.array([b.data_ptr() + 4 * (ld + col0) for b in bufs], dtype=np.int64)
     if form == "smem":
         ranges = np.array([(b.data_ptr(), b.data_ptr() + 4 * b.numel()) for b in bufs],
                           dtype=np.int64)
-        rows = lib.host_rows(fwd, ptrs.ctypes.data, len(bufs), ld, h, w, px,
+        rows = lib.host_rows(index, ptrs.ctypes.data, len(bufs), ld, h, w, px,
                              ranges.ctypes.data, len(bufs))
     else:
         tmp = torch.empty(len(bufs) * h * w, dtype=torch.int32)
-        rows = lib.host_scratch(fwd, ptrs.ctypes.data, len(bufs), ld, h, w, px, tmp.data_ptr())
+        rows = lib.host_scratch(int(half == "fwd"), ptrs.ctypes.data, len(bufs), ld, h, w, px,
+                                tmp.data_ptr())
     assert rows >= 0
     for b, r in zip(bufs, refs):
-        assert torch.equal(b, r)
+        assert torch.equal(b.view(torch.int32), r.view(torch.int32))
     return rows
 
 
@@ -152,8 +161,9 @@ def test_constants_match_the_wrapper():
     """The source and the wrapper agree on the planes a launch and the
     longest "smem" line; a block is 256 threads. The form: "smem" up to
     MAX_LINE samples, but "scratch" for a launch of fewer lines past
-    SHORT_LINE than a fifth of the SMs (132 on an H100)."""
-    src = (kernels.CSRC / "strip53_h.cu").read_text()
+    SHORT_LINE than a fifth of the SMs (132 on an H100). A launch of any
+    half takes up to H_MAX_PLANES planes."""
+    src = (kernels.CSRC / "strip_h.cu").read_text()
     define = {m[0]: m[1] for m in re.findall(r"#define (H_\w+) (\S+(?: \* \d+\))?)", src)}
     assert int(define["H_PLANES"]) == tr.H_MAX_PLANES
     assert define["H_MAX_LINE"] == "(50 * 1024)" and tr.MAX_LINE == 50 * 1024
@@ -162,9 +172,8 @@ def test_constants_match_the_wrapper():
             for w in (1, tr.MAX_LINE, tr.MAX_LINE + 1)] == ["smem", "smem", "scratch"]
     assert [tr.h_form("dwt53_inv_h", w, 26, 132)
             for w in (1, tr.SHORT_LINE, tr.SHORT_LINE + 1)] == ["smem", "smem", "scratch"]
-    assert tr.h_lines("dwt53_fwd_h", [None] * 4, 16) == 64
-    assert tr.h_lines("dwt53_inv_h", [None] * 9, 2) == 2 * tr.H_MAX_PLANES
-    assert tr.h_lines("dwt97_fwd_h", [None] * 4, 16) == 16
+    assert tr.h_lines([None] * 4, 16) == 64
+    assert tr.h_lines([None] * 9, 2) == 2 * tr.H_MAX_PLANES
 
 
 @pytest.mark.parametrize("wrap", [False, True], ids=["16-bit", "near 2^31"])

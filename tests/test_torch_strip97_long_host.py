@@ -1,4 +1,4 @@
-"""The 9/7 strip halves' "scratch" form (csrc/dwt97.cu ``scratch_lines``:
+"""The 9/7 strip halves' "scratch" form (csrc/strip_h.cu ``scratch_lines``:
 ``dwt97_scratch_in``, four ``dwt97_scratch_step`` launches and
 ``dwt97_scratch_out``), which takes lines longer than shared memory holds,
 compiled for the host and held to the plain versions on the CPU, on the
@@ -12,7 +12,8 @@ kernel (none has a barrier). The form is called directly at lines of 7 and
 16-byte alignment inside a border of sentinels that must stay as it was.
 What this cannot show: timing, and anything nvcc compiles differently from
 g++; the `cuda` tests of tests/test_torch_cuda.py hold the card at 65,536
-samples a line."""
+samples a line. The C entry runs ``scratch_lines`` on each plane of a
+launch in turn, through its own h x w part of the scratch."""
 
 import ctypes
 
@@ -26,8 +27,9 @@ from grok_tpu_torch.ops import transform as tr
 
 HARNESS = r"""
 #include "shim.h"
+#define __grid_constant__
 #include "kernel.inc"
-""" + SHIM_GLOBALS + r"""alignas(16) float s_tile[TR * TP > FTR * FTP ? TR * TP : FTR * FTP];
+""" + SHIM_GLOBALS + r"""alignas(16) int32_t s_rows[H_MAX_LINE + 8];
 // a launch on the host: every thread of a 1-d grid of 256-thread blocks, in turn
 struct HostLaunch {
     template <class... P, class... A>
@@ -53,8 +55,9 @@ SENTINEL = -12345.5
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = build(tmp_path_factory.mktemp("strip97_long"), (kernels.CSRC / "dwt97.cu").read_text(),
-                "// lines of n samples", HARNESS, "strip97_long")
+    lib = build(tmp_path_factory.mktemp("strip97_long"), (kernels.CSRC / "strip_h.cu").read_text(),
+                "// ---------------------------------------------------------------- the C "
+                "entries", HARNESS, "strip97_long")
     lib.host_scratch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_longlong] + [ctypes.c_int] * 3
     return lib
@@ -80,11 +83,16 @@ def test_scratch_form_equals_plain(host_lib, n, par, fwd):
 def test_forms_by_line_length():
     """Lines up to MAX_LINE take the shared-memory form, longer ones the
     scratch form, and so do a few lines past SHORT_LINE (a 9/7 launch is
-    one plane's rows); the 9/7 source's shared limit is MAX_LINE floats."""
-    src = (kernels.CSRC / "dwt97.cu").read_text()
-    assert "static const int kMaxSmem = 200 * 1024;" in src and tr.MAX_LINE * 4 == 200 * 1024
+    the rows of up to H_MAX_PLANES planes); the halves' source takes "smem"
+    lines of up to MAX_LINE samples."""
+    src = (kernels.CSRC / "strip_h.cu").read_text()
+    assert "#define H_MAX_LINE (50 * 1024)" in src and tr.MAX_LINE == 50 * 1024
     assert (tr.h_form("dwt97_fwd_h", tr.MAX_LINE, 132, 132),
             tr.h_form("dwt97_fwd_h", 65536, 1024, 132)) == ("smem", "scratch")
-    lines = tr.h_lines("dwt97_inv_h", [None] * 4, 131)  # a 9/7 launch is one plane's
+    few = -(-132 // tr.FEW_LINES_DIV["dwt97"]) - 1  # the most lines a "scratch" launch
+    lines = tr.h_lines([None] * 4, few // 4)
+    assert lines == few // 4 * 4 and lines * tr.FEW_LINES_DIV["dwt97"] < 132
     assert (tr.h_form("dwt97_inv_h", tr.SHORT_LINE, lines, 132),
-            tr.h_form("dwt97_inv_h", tr.SHORT_LINE + 1, lines, 132)) == ("smem", "scratch")
+            tr.h_form("dwt97_inv_h", tr.SHORT_LINE + 1, lines, 132),
+            tr.h_form("dwt97_inv_h", tr.SHORT_LINE + 1, few + 1, 132)) == (
+                "smem", "scratch", "smem")
